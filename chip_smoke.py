@@ -3,31 +3,43 @@
 
     python3 chip_smoke.py
 
-1. builds every CUDA kernel of the port from ``src/repro_torch/kernels/*/
+0. builds every CUDA kernel of the port from ``src/repro_torch/kernels/*/
    csrc`` (one ``nvcc`` per source, all started together);
-2. drives the main path through ``repro_torch.core.api.ForestKernel`` at the
+1. drives the main path through ``repro_torch.core.api.ForestKernel`` at the
    repository's acceptance size — RF, ``kernel_method="gap"``, 100 trees,
    50,000 training rows x 20 features, 7 classes, a 5,000-row OOS batch —
-   and holds every op against the port's host scipy CSR products (atol
-   1e-8);
-3. holds each kernel against its plain PyTorch version on the card: the
-   routing kernel bit-exact on the acceptance forest and on a deep forest
-   whose node tables exceed a block's shared memory, the proximity-block
-   kernel within 1e-10 at the main path's shape;
-4. prints one ``{"kernels": [...]}`` line (launches on the main path,
-   errors, kernel / plain / library times and the least time the card
-   could take), the card's name and power limit, and as its last line
+   with the forest grown on the card (histogram kernel K3), and
+2. holds every op against the port's host scipy CSR products (atol 1e-8);
+3. holds the trainer on the card against the host numpy trainer: the
+   acceptance forest, a 10-tree ExtraTrees and a 20-tree integer-target
+   regression forest (moments kernel K4) bit for bit, field for field;
+4. drives the gradient-boosting path — ``model_type="gbt"``,
+   ``kernel_method="boosted"``, 100 stages of depth 6 on ``friedman1``
+   50,000 x 20 (+5,000 OOS) — counted, and holds it against a host GBT fit
+   (predictions within 0.05 y.std), host scipy (ops at 1e-8) and a second
+   card fit (bit-identical trees);
+5. holds each kernel against its plain PyTorch version on the card: routing
+   bit-exact on the acceptance forest and on a deep forest whose node
+   tables exceed a block's shared memory, the proximity block within 1e-10,
+   K3 at the acceptance level-1 shape and K4 at the GBT root shape
+   bit-exact on integer payloads, K4 on continuous payloads within float32
+   rounding of float64 sums and bit-identical across launches;
+6. prints one ``{"kernels": [...]}`` line (launches on the main and GBT
+   paths, errors, kernel / plain / library times and the least time the
+   card could take), the card's name and power limit, and as its last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It exits non-zero at once when torch finds no CUDA device or when the
-port's sources are not beside it.
+port's sources are not beside it.  About 2.5 minutes on one H100, a third
+of it the host numpy fits the card fits are held against.
 """
 import json
 import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -39,12 +51,17 @@ TOPK_ROWS, BLOCK_ROWS, K = 4096, 512, 10
 CHECK_ROWS = 1024        # train rows whose all-pairs results host scipy checks
 ATOL_OPS = 1e-8          # the reference's cross-backend engine contract
 ATOL_BLOCK = 1e-10       # K2 against its plain version (sums in other order)
+N_GBT, N_GBT_OOS, GBT_STAGES, GBT_DEPTH = 50_000, 5_000, 100, 6
+N_ET_TREES, N_REG_TREES = 10, 20
+TREE_FIELDS = ("feature", "threshold", "left", "right", "leaf_id", "value",
+               "n_node_samples")
 
 # Peak rates of one H100 SXM at the full 700 W (NVIDIA data sheet and Hopper
 # white paper): HBM3 3.35 TB/s; FP64 outside the tensor cores 33.5 TFLOP/s
 # (132 SMs x 64 FP64 lanes x 2 x 1.98 GHz).
 HBM_BYTES_S = 3.35e12
 FP64_FMA_S = 33.5e12 / 2
+FP32_S = 67e12           # FP32 outside the tensor cores (NVIDIA data sheet)
 
 
 def check(cond, msg):
@@ -57,6 +74,16 @@ def max_err(a, b):
     b = b.detach().cpu().numpy() if hasattr(b, "detach") else np.asarray(b)
     check(a.shape == b.shape, f"shape {a.shape} != {b.shape}")
     return float(np.abs(a - b).max()) if a.size else 0.0
+
+
+def same_trees(a, b, what):
+    """Two forests' trees equal field for field."""
+    check(len(a) == len(b), f"{what}: {len(a)} vs {len(b)} trees")
+    for t, (s, u) in enumerate(zip(a, b)):
+        for f in TREE_FIELDS:
+            check(np.array_equal(getattr(s, f), getattr(u, f)),
+                  f"{what}: tree {t} field {f} differs")
+        check(s.depth == u.depth, f"{what}: tree {t} depth differs")
 
 
 def cuda_ms(torch, fn, reps):
@@ -74,6 +101,30 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def device_kernels(torch, fn):
+    """Run ``fn`` under ``torch.profiler``; returns its result and the
+    device milliseconds of each kernel name over the run."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            times[e.key] = times.get(e.key, 0.0) + us / 1e3
+    return out, times
+
+
+def hist_kernel_ms(times):
+    """Device ms of the histogram source's kernels (K3/K4 and the reduce
+    pass) in a profile."""
+    return sum(v for k, v in times.items() if "histogram" in k)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -85,13 +136,18 @@ def main() -> int:
     sys.path.insert(0, SRC)
     from repro_torch.core.api import ForestKernel
     from repro_torch.core.factorization import kernel_block, topk_neighbors
-    from repro_torch.data.synthetic import gaussian_classes, train_test_split
-    from repro_torch.forest.ensemble import RandomForest
+    from repro_torch.data.synthetic import (friedman1, gaussian_classes,
+                                            train_test_split)
+    from repro_torch.forest.ensemble import ExtraTrees, RandomForest
     from repro_torch.kernels import _build
     from repro_torch.kernels.block_prox.ops import block_prox
     from repro_torch.kernels.block_prox.ref import block_prox_ref
+    from repro_torch.kernels.histogram.ops import histogram, moments
+    from repro_torch.kernels.histogram.ref import histogram_ref, moments_ref
     from repro_torch.kernels.leaf_route.ops import route
     from repro_torch.kernels.leaf_route.ref import route_ref
+    wrappers = {"leaf_route": route, "block_prox": block_prox,
+                "histogram": histogram, "moments": moments}
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -108,9 +164,13 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(sorted(reports)) or 'cached'})", flush=True)
     for name, rep in sorted(reports.items()):
+        seen = set()
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+            line = line.strip()
+            if ("registers" in line or "spill" in line or "smem" in line) \
+                    and line not in seen:
+                seen.add(line)
+                print(f"  ptxas {name}: {line}")
 
     # ---- phase 1: the main path, counted ----
     X, y = gaussian_classes(N_TRAIN + N_OOS, d=D, n_classes=N_CLASSES, seed=0)
@@ -135,17 +195,25 @@ def main() -> int:
 
     def counted(name, fn):
         """``step``, also noting the kernel launches the call made."""
-        before = (route.launches, block_prox.launches)
+        before = {k: f.launches for k, f in wrappers.items()}
         out = step(name, fn)
-        per_step[name] = (route.launches - before[0],
-                          block_prox.launches - before[1])
+        per_step[name] = "/".join(str(f.launches - before[k])
+                                  for k, f in wrappers.items())
         return out
 
-    route.launches = 0
-    block_prox.launches = 0
+    def reset_counts():
+        for f in wrappers.values():
+            f.launches = 0
+
+    def read_counts():
+        return {k: f.launches for k, f in wrappers.items()}
+
+    reset_counts()
     fk = ForestKernel(model_type="rf", kernel_method="gap", n_trees=N_TREES,
                       n_bins=64, seed=0, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
     counted("fit_forest", lambda: fk.fit_forest(Xtr, ytr))
+    fit_peak = torch.cuda.max_memory_allocated()
     counted("build_kernel_cache", fk.build_kernel_cache)
     pred_tr = counted("predict_train", fk.predict)
     pred_te = counted("predict_oos", lambda: fk.predict(Xte))
@@ -158,12 +226,17 @@ def main() -> int:
     tr_idx, tr_val = counted("topk_train", lambda: fk.topk(k=K))
     srs_tr = counted("squared_row_sums_train",
                      lambda: fk.engine.squared_row_sums(ytr, N_CLASSES))
-    launches = {"leaf_route": route.launches, "block_prox": block_prox.launches}
-    print("main path (s, K1/K2 launches): " + ", ".join(
-        f"{k} {v:.3f} ({per_step[k][0]}/{per_step[k][1]})"
-        for k, v in wall.items()) + f"; launches {launches}", flush=True)
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the main path")
+    launches = read_counts()
+    print("main path (s, K1/K2/K3/K4 launches): " + ", ".join(
+        f"{k} {v:.3f} ({per_step[k]})" for k, v in wall.items())
+        + f"; launches {launches}", flush=True)
+    for name in ("leaf_route", "block_prox", "histogram"):
+        check(launches[name] > 0, f"{name} was not launched on the main path")
+    check(launches["moments"] == 0, "a classification fit launched K4")
+    levels = max(t.depth for t in fk.forest.trees_)
+    print(f"card fit: {wall['fit_forest']:.3f} s, {levels} levels, "
+          f"{per_step['fit_forest']} launches, peak device memory "
+          f"{fit_peak / 2 ** 30:.3f} GiB", flush=True)
 
     # ---- phase 2: every op against the host scipy CSR products ----
     eng = fk.engine
@@ -225,7 +298,138 @@ def main() -> int:
     print(f"OOS accuracy (proximity-weighted, gap): {acc:.4f}", flush=True)
     check(acc > 1.0 / N_CLASSES, "OOS accuracy above chance")
 
-    # ---- phase 3: kernels against their plain versions ----
+    # ---- phase 3: the trainer on the card against the host trainer ----
+    host = ForestKernel(model_type="rf", kernel_method="gap", n_trees=N_TREES,
+                        n_bins=64, seed=0, device="cuda", tree_backend="numpy")
+    step("host_fit_forest", lambda: host.fit_forest(Xtr, ytr))
+    same_trees(fk.forest.trees_, host.forest.trees_, "acceptance forest")
+    from repro_torch.forest import training
+
+    def split_fit(name, fn):
+        """``step`` with the trainer's histogram calls (K3/K4 and their
+        wrapper) and its device scoring (uploads of the draws included)
+        timed to completion; the rest is the host driver (partition, RNG,
+        split decisions, frontier uploads)."""
+        split = {"histogram calls": 0.0, "device scoring": 0.0}
+
+        def timed(f, key):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = f(*a, **k)
+                torch.cuda.synchronize()
+                split[key] += time.perf_counter() - t
+                return out
+            return run
+
+        hops, score = training.hops, training._score_torch
+        training.hops = types.SimpleNamespace(
+            histogram=timed(histogram, "histogram calls"),
+            moments=timed(moments, "histogram calls"))
+        training._score_torch = timed(score, "device scoring")
+        try:
+            out = step(name, fn)
+        finally:
+            training.hops, training._score_torch = hops, score
+        split["host driver"] = wall[name] - sum(split.values())
+        return out, ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
+
+    def card_rf():
+        return RandomForest(n_trees=N_TREES, n_bins=64, seed=0,
+                            device="cuda").fit(Xtr, ytr)
+    again, parts = split_fit("card fit, timed parts", card_rf)
+    same_trees(fk.forest.trees_, again.trees_, "second card fit")
+    # the device's own view, from a third fit under torch.profiler (which
+    # slows the host, so its wall time is not used)
+    third, fit_kernels = device_kernels(torch, card_rf)
+    same_trees(fk.forest.trees_, third.trees_, "profiled card fit")
+    busy = sum(fit_kernels.values()) / 1e3
+    print(f"card fit {wall['fit_forest']:.3f} s vs host numpy fit "
+          f"{wall['host_fit_forest']:.3f} s, trees identical; a second card "
+          f"fit {wall['card fit, timed parts']:.3f} s: {parts}; device "
+          f"kernels of a third (profiled) fit {busy:.3f} s, K3 "
+          f"{hist_kernel_ms(fit_kernels) / 1e3:.3f} s, so the device idles "
+          f"{1 - busy / wall['card fit, timed parts']:.3f} of the second "
+          f"fit", flush=True)
+    # integer targets keep the (w, w·y, w·y²) moments exact in float32
+    Xr = np.random.default_rng(3).random((N_TRAIN, D))
+    yr = np.floor(Xr[:, 0] * 5 + Xr[:, 1] * 3)
+    for name, make in (("extra trees", lambda b: ExtraTrees(
+            n_trees=N_ET_TREES, seed=0, device="cuda", tree_backend=b)
+            .fit(Xtr, ytr)),
+            ("integer regression", lambda b: RandomForest(
+                n_trees=N_REG_TREES, seed=0, task="regression",
+                device="cuda", tree_backend=b).fit(Xr, yr))):
+        card, parts = split_fit(f"{name} card", lambda: make("auto"))
+        hostf = step(f"{name} host", lambda: make("numpy"))
+        same_trees(card.trees_, hostf.trees_, name)
+        print(f"{name}: card {wall[name + ' card']:.3f} s ({parts}), host "
+              f"{wall[name + ' host']:.3f} s, trees identical", flush=True)
+
+    # ---- phase 4: the gradient-boosting path, counted ----
+    Xg, yg = friedman1(N_GBT + N_GBT_OOS, d=D, seed=0)
+    Xg_tr, yg_tr, Xg_te, yg_te = train_test_split(
+        Xg, yg, test_frac=N_GBT_OOS / (N_GBT + N_GBT_OOS), seed=0)
+    check(len(Xg_tr) == N_GBT, "GBT split sizes")
+    gkw = dict(model_type="gbt", task="regression", kernel_method="boosted",
+               n_trees=GBT_STAGES, max_depth=GBT_DEPTH, seed=0)
+    reset_counts()
+    gk = ForestKernel(device="cuda", **gkw)
+    counted("gbt fit_forest", lambda: gk.fit_forest(Xg_tr, yg_tr))
+    counted("gbt build_kernel_cache", gk.build_kernel_cache)
+    g_pred_tr = counted("gbt predict_train", gk.predict)
+    g_pred_te = counted("gbt predict_oos", lambda: gk.predict(Xg_te))
+    g_rs = counted("gbt row_sums_oos", lambda: gk.row_sums(Xg_te))
+    g_blk = counted("gbt kernel_block", lambda: gk.kernel_block(rows))
+    g_idx, g_val = counted("gbt topk_oos", lambda: gk.topk(k=K, X=Xg_te))
+    gbt_launches = read_counts()
+    print("GBT path (s, K1/K2/K3/K4 launches): " + ", ".join(
+        f"{k} {wall[k]:.3f} ({per_step[k]})" for k in per_step
+        if k.startswith("gbt")) + f"; launches {gbt_launches}", flush=True)
+    for name in ("leaf_route", "block_prox", "moments"):
+        check(gbt_launches[name] > 0, f"{name} was not launched on the GBT "
+              "path")
+    check(gbt_launches["histogram"] == 0, "a regression fit launched K3")
+    ge = gk.engine
+    Y2 = np.stack([yg_tr, np.ones(N_GBT)], axis=1)
+    S2 = np.asarray(ge.W.T @ Y2)
+    gdiag = np.asarray(ge.Q.multiply(ge.W).sum(axis=1)).ravel()
+    h_tr = np.asarray(ge.Q @ S2) - gdiag[:, None] * Y2
+    Qg_te = gk.query_map(Xg_te)
+    h_te = np.asarray(Qg_te @ S2)
+    gerrs = {
+        "gbt_predict_train": max_err(g_pred_tr, h_tr[:, 0] / np.maximum(
+            h_tr[:, 1], 1e-300)),
+        "gbt_predict_oos": max_err(g_pred_te, h_te[:, 0] / np.maximum(
+            h_te[:, 1], 1e-300)),
+        "gbt_row_sums_oos": max_err(g_rs, np.asarray(
+            Qg_te @ (ge.W.T @ np.ones(N_GBT)))),
+        "gbt_kernel_block": max_err(g_blk, kernel_block(ge.Q, ge.W, rows)),
+        "gbt_topk_oos_values": max_err(g_val, topk_neighbors(
+            Qg_te, ge.W, K)[1]),
+    }
+    for name, e in gerrs.items():
+        print(f"  {name}: max abs err {e:.3e}")
+        check(e <= ATOL_OPS, f"{name} error {e} > {ATOL_OPS}")
+    g_host = ForestKernel(device="cuda", tree_backend="numpy", **gkw)
+    step("gbt host fit", lambda: g_host.fit_forest(Xg_tr, yg_tr))
+    gbt_gap = float((gk.forest.predict(Xg_tr) - g_host.forest.predict(Xg_tr))
+                    .abs().max())
+    check(gbt_gap <= 0.05 * yg_tr.std(),
+          f"card GBT vs host GBT {gbt_gap} > 0.05 y.std")
+    g_again = ForestKernel(device="cuda", **gkw)
+    _, g_parts = split_fit("gbt card fit again",
+                           lambda: g_again.fit_forest(Xg_tr, yg_tr))
+    same_trees(gk.forest.trees_, g_again.forest.trees_, "GBT refit")
+    gbt_rmse = float(((g_pred_te.cpu().numpy() - yg_te) ** 2).mean() ** .5)
+    print(f"GBT: card fit {wall['gbt fit_forest']:.3f} s, host fit "
+          f"{wall['gbt host fit']:.3f} s, max |card - host| prediction "
+          f"{gbt_gap:.3e} (limit {0.05 * yg_tr.std():.4f}), refit "
+          f"bit-identical ({wall['gbt card fit again']:.3f} s: {g_parts}); "
+          f"OOS proximity-prediction RMSE {gbt_rmse:.4f} "
+          f"(y.std {yg_te.std():.4f})", flush=True)
+
+    # ---- phase 5: kernels against their plain versions ----
     forest = fk.forest
     tables = forest.route_tables_
     X_dev = torch.as_tensor(Xtr, dtype=torch.float64, device=dev)
@@ -272,6 +476,101 @@ def main() -> int:
     lib_err = max_err(torch.sparse.mm(W_dev, QrT).t(), k2_out)
     k2_lib_ms = cuda_ms(torch, lambda: torch.sparse.mm(W_dev, QrT), 10)
 
+    # K3 at the acceptance forest's level-1 shape: every tree's root over
+    # its in-bag rows (bootstrap counts as weights), through the whole code
+    # matrix by row id, as the trainer calls it
+    inbag = forest.inbag_
+    codes = torch.as_tensor(forest.binner_.transform(Xtr), device=dev)
+    n_bins = forest.binner_.n_bins
+    rows_np = [np.flatnonzero(inbag[t]) for t in range(N_TREES)]
+    k3_rows = torch.as_tensor(np.concatenate(rows_np), dtype=torch.int32,
+                              device=dev)
+    k3_node = torch.as_tensor(np.repeat(np.arange(N_TREES), [
+        len(r) for r in rows_np]), dtype=torch.int32, device=dev)
+    k3_y = torch.as_tensor(ytr, dtype=torch.int32, device=dev)[
+        k3_rows.long()]
+    k3_w = torch.as_tensor(np.concatenate(
+        [inbag[t, r] for t, r in enumerate(rows_np)]), dtype=torch.float32,
+        device=dev)
+    k3_args = (k3_node, k3_y, k3_w, N_TREES, n_bins, N_CLASSES)
+    k3_out = histogram(codes, *k3_args, rows=k3_rows)
+
+    def k3_plain():
+        return histogram_ref(codes[k3_rows.long()], *k3_args)
+    k3_err = max_err(k3_out, k3_plain())
+    check(k3_err == 0.0, "histogram != plain version on integer weights")
+    check(torch.equal(histogram(codes, *k3_args, rows=k3_rows), k3_out),
+          "histogram differs between two launches")
+    k3_ms = cuda_ms(torch, lambda: histogram(codes, *k3_args, rows=k3_rows),
+                    10)
+    k3_plain_ms = cuda_ms(torch, k3_plain, 3)
+    _, kt = device_kernels(torch, lambda: [histogram(
+        codes, *k3_args, rows=k3_rows) for _ in range(5)])
+    k3_dev_ms = hist_kernel_ms(kt) / 5
+    m3 = len(k3_rows)
+    k3_flat = ((((k3_node.long()[:, None] * D + torch.arange(D, device=dev))
+                 * n_bins + codes[k3_rows.long()].long()) * N_CLASSES
+                + k3_y.long()[:, None]).reshape(-1))
+    k3_wexp = k3_w[:, None].expand(m3, D).reshape(-1).contiguous()
+    k3_table = torch.zeros(N_TREES * D * n_bins * N_CLASSES,
+                           dtype=torch.float32, device=dev)
+    k3_lib_ms = cuda_ms(torch, lambda: k3_table.index_add_(0, k3_flat,
+                                                           k3_wexp), 10)
+    del k3_flat, k3_wexp
+
+    # K4 at the GBT root shape: one node over all 50,000 rows with the
+    # trainer's (w, w·y, w·y²) payload; integer targets first (exact), then
+    # the continuous residuals of the first stage
+    gforest = gk.forest
+    g_codes = torch.as_tensor(gforest.binner_.transform(Xg_tr), device=dev)
+    g_bins = gforest.binner_.n_bins
+    k4_rows = torch.arange(N_GBT, dtype=torch.int32, device=dev)
+    k4_node = torch.zeros(N_GBT, dtype=torch.int32, device=dev)
+
+    def payload(v):
+        v = torch.as_tensor(v, device=dev)
+        return torch.stack([torch.ones_like(v), v, v * v], 1).float()
+    wm_int = payload(np.floor(yg_tr))
+    wm_res = payload(yg_tr - yg_tr.mean())
+    k4_args = (k4_node, wm_res, 1, g_bins)
+    k4_int = moments(g_codes, k4_node, wm_int, 1, g_bins, rows=k4_rows)
+    k4_int_err = max_err(k4_int, moments_ref(g_codes, k4_node, wm_int, 1,
+                                             g_bins, 3))
+    check(k4_int_err == 0.0, "moments != plain version on integer payloads")
+    k4_out = moments(g_codes, *k4_args, rows=k4_rows)
+    check(torch.equal(moments(g_codes, *k4_args, rows=k4_rows), k4_out),
+          "moments differs between two launches on continuous payloads")
+    # float32 sums of a bin's c terms are within c·2⁻²⁴·Σ|terms| of the
+    # exact (float64) sum
+    flat = (torch.arange(D, device=dev) * g_bins + g_codes.long()).reshape(-1)
+    exact = torch.zeros((D * g_bins, 3), dtype=torch.float64, device=dev)
+    absum = torch.zeros_like(exact)
+    cnt = torch.zeros(D * g_bins, dtype=torch.float64, device=dev)
+    wm64 = wm_res.double()[:, None, :].expand(N_GBT, D, 3).reshape(-1, 3)
+    exact.index_add_(0, flat, wm64)
+    absum.index_add_(0, flat, wm64.abs())
+    cnt.index_add_(0, flat, torch.ones_like(flat, dtype=torch.float64))
+    k4_dev = (k4_out.reshape(-1, 3).double() - exact).abs()
+    check(bool((k4_dev <= cnt[:, None] * 2.0 ** -24 * absum).all()),
+          "moments on continuous payloads outside float32 rounding")
+    k4_plain_out = moments_ref(g_codes, k4_node, wm_res, 1, g_bins, 3)
+    k4_err = max(k4_int_err, max_err(k4_out, k4_plain_out))
+    k4_ms = cuda_ms(torch, lambda: moments(g_codes, *k4_args, rows=k4_rows),
+                    20)
+    _, kt = device_kernels(torch, lambda: [moments(
+        g_codes, *k4_args, rows=k4_rows) for _ in range(5)])
+    k4_dev_ms = hist_kernel_ms(kt) / 5
+    k4_plain_ms = cuda_ms(torch, lambda: moments_ref(
+        g_codes[k4_rows.long()], k4_node, wm_res, 1, g_bins, 3), 5)
+    k4_table = torch.zeros((D * g_bins, 3), dtype=torch.float32, device=dev)
+    wm_exp = wm_res[:, None, :].expand(N_GBT, D, 3).reshape(-1, 3) \
+        .contiguous()
+    k4_lib_ms = cuda_ms(torch, lambda: k4_table.index_add_(0, flat, wm_exp),
+                        20)
+    print(f"K3/K4 bit-exact on integer payloads; K4 continuous: max |kernel "
+          f"- float64| {float(k4_dev.max()):.3e}, vs plain "
+          f"{max_err(k4_out, k4_plain_out):.3e}, same bits twice", flush=True)
+
     # ---- bounds, from this run's shapes and data ----
     # K1 reads X once, each real node once (feature, threshold, two
     # children, leaf id: 24 bytes; not the padding up to M) and writes the
@@ -291,21 +590,50 @@ def main() -> int:
     k2_terms = {"bytes": k2_bytes / HBM_BYTES_S,
                 "operations": collisions / FP64_FMA_S}
     k2_by = max(k2_terms, key=k2_terms.get)
+    # K3/K4 read the code matrix, each instance's row id, label and
+    # weight (or K payloads) once and write the table; the work is one add
+    # per (instance, feature) and payload column
+    k3_terms = {"bytes": (N_TRAIN * D * codes.element_size() + m3 * 12
+                          + k3_out.numel() * 4) / HBM_BYTES_S,
+                "operations": m3 * D / FP32_S}
+    k4_terms = {"bytes": (N_GBT * D * g_codes.element_size() + N_GBT * 4
+                          + wm_res.numel() * 4 + k4_out.numel() * 4)
+                / HBM_BYTES_S,
+                "operations": N_GBT * D * 3 / FP32_S}
+    k3_by = max(k3_terms, key=k3_terms.get)
+    k4_by = max(k4_terms, key=k4_terms.get)
+
+    def total(name):
+        return launches[name] + gbt_launches[name]
     kernels = [
         {"name": "leaf_route", "route": "cuda",
          "source": "src/repro_torch/kernels/leaf_route/csrc/leaf_route.cu",
          "replaces": "src/repro/kernels/leaf_route/leaf_route.py:48",
-         "launches": launches["leaf_route"],
+         "launches": total("leaf_route"),
          "max_abs_err": max(k1_err, k1_err_deep),
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": "bytes", "library_ms": None},
         {"name": "block_prox", "route": "cuda",
          "source": "src/repro_torch/kernels/block_prox/csrc/block_prox.cu",
          "replaces": "src/repro/kernels/block_prox/block_prox.py:56",
-         "launches": launches["block_prox"], "max_abs_err": k2_err,
+         "launches": total("block_prox"), "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_terms[k2_by] * 1e3, "bound_by": k2_by,
          "library_ms": k2_lib_ms},
+        {"name": "histogram", "route": "cuda",
+         "source": "src/repro_torch/kernels/histogram/csrc/histogram.cu",
+         "replaces": "src/repro/kernels/histogram/histogram.py:110",
+         "launches": total("histogram"), "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms,
+         "bound_ms": k3_terms[k3_by] * 1e3, "bound_by": k3_by,
+         "library_ms": k3_lib_ms},
+        {"name": "moments", "route": "cuda",
+         "source": "src/repro_torch/kernels/histogram/csrc/histogram.cu",
+         "replaces": "src/repro/kernels/histogram/histogram.py:165",
+         "launches": total("moments"), "max_abs_err": k4_err,
+         "ms": k4_ms, "plain_ms": k4_plain_ms,
+         "bound_ms": k4_terms[k4_by] * 1e3, "bound_by": k4_by,
+         "library_ms": k4_lib_ms},
     ]
     print(f"K1 route {n}x{T} (M={M}, {n_nodes} nodes): {k1_ms:.3f} ms, "
           f"plain {k1_plain_ms:.3f} ms, bound {k1_bound:.4f} ms")
@@ -313,6 +641,18 @@ def main() -> int:
           f"ms, cuSPARSE SpMM {k2_lib_ms:.3f} ms (err {lib_err:.2e}), bound "
           f"{k2_terms[k2_by] * 1e3:.4f} ms by {k2_by} "
           f"(collisions {collisions:.3e})")
+    print(f"K3 level 1 {N_TREES} nodes x {m3} instances x {D} x {n_bins} x "
+          f"{N_CLASSES}: {k3_ms:.3f} ms a wrapper call ({k3_dev_ms:.3f} ms "
+          f"in its kernels on the device), plain {k3_plain_ms:.3f} ms, "
+          f"index_add_ {k3_lib_ms:.3f} ms, bound "
+          f"{k3_terms[k3_by] * 1e3:.4f} ms by {k3_by}")
+    print(f"K4 GBT root 1 node x {N_GBT} x {D} x {g_bins} x 3: {k4_ms:.3f} "
+          f"ms a wrapper call ({k4_dev_ms:.3f} ms in its kernels on the "
+          f"device), plain {k4_plain_ms:.3f} ms, index_add_ "
+          f"{k4_lib_ms:.3f} ms, "
+          f"bound {k4_terms[k4_by] * 1e3:.4f} ms by {k4_by}")
+    print("launches (main path + GBT path): " + ", ".join(
+        f"{k} {launches[k]} + {gbt_launches[k]}" for k in wrappers))
     print(f"wall: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

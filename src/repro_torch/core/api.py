@@ -2,7 +2,9 @@
 card.
 
 Three stages:
-  1. ``fit_forest(X, y)``        — train the forest (host numpy trainer).
+  1. ``fit_forest(X, y)``        — train the forest (on the card through the
+                                   histogram kernels; the host numpy
+                                   trainer on the CPU).
   2. ``build_kernel_cache()``    — route the training set on the device,
                                    compute θ and the SWLC factors there, and
                                    build the host CSR maps Q/W.
@@ -12,8 +14,8 @@ Three stages:
 
 ``fit`` = fit_forest + build_kernel_cache.  ``device="cuda"`` (the default)
 raises when no card is present; ``device="cpu"`` runs the same path through
-the kernels' plain versions.  Covered here: ``model_type`` "rf" and "et",
-``kernel_method`` "original", "kerf", "oob" and "gap".
+the kernels' plain versions.  Covered here: ``model_type`` "rf", "et" and
+"gbt", ``kernel_method`` "original", "kerf", "oob", "gap" and "boosted".
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ import scipy.sparse as sp
 import torch
 
 from ..device import resolve_device
-from ..forest.ensemble import BaseForest, ExtraTrees, RandomForest
+from ..forest.ensemble import (BaseForest, ExtraTrees, GradientBoostedTrees,
+                               RandomForest)
 from .context import EnsembleContext
 from .engine import ProximityEngine
 from .leafmap import sparse_bytes
@@ -34,13 +37,14 @@ from .weights import WeightAssignment, get_assignment
 
 __all__ = ["ForestKernel"]
 
-_MODEL_TYPES = {"rf": RandomForest, "et": ExtraTrees}
+_MODEL_TYPES = {"rf": RandomForest, "et": ExtraTrees,
+                "gbt": GradientBoostedTrees}
 
 
 @dataclasses.dataclass
 class ForestKernel:
-    model_type: str = "rf"           # 'rf' | 'et'
-    kernel_method: str = "gap"       # 'original' | 'kerf' | 'oob' | 'gap'
+    model_type: str = "rf"           # 'rf' | 'et' | 'gbt'
+    kernel_method: str = "gap"       # 'original'|'kerf'|'oob'|'gap'|'boosted'
     task: str = "classification"
     n_trees: int = 100
     max_depth: int = 64
@@ -48,8 +52,9 @@ class ForestKernel:
     max_features: Optional[str] = "sqrt"
     n_bins: int = 64
     seed: int = 0
-    n_jobs: int = 0                  # tree-fitting workers (0 = auto)
+    n_jobs: int = 0                  # host tree-fitting workers (0 = auto)
     device: str = "cuda"             # 'cuda' | 'cpu' (no silent fallback)
+    tree_backend: str = "auto"       # trainer: 'auto' | 'numpy' | 'torch'
 
     forest: Optional[BaseForest] = None
     ctx: Optional[EnsembleContext] = None
@@ -61,16 +66,15 @@ class ForestKernel:
     # ---------------- fitting ----------------
     def _forest(self) -> BaseForest:
         if self.model_type not in _MODEL_TYPES:
-            raise NotImplementedError(
-                f"model_type {self.model_type!r} is not ported; have "
-                f"{sorted(_MODEL_TYPES)} (gradient boosting comes with the "
-                "trainer slice)")
+            raise ValueError(f"unknown model_type {self.model_type!r}; have "
+                             f"{sorted(_MODEL_TYPES)}")
         return _MODEL_TYPES[self.model_type](
             n_trees=self.n_trees, max_depth=self.max_depth,
             min_samples_leaf=self.min_samples_leaf,
             max_features=self.max_features, n_bins=self.n_bins,
             task=self.task, seed=self.seed, n_jobs=self.n_jobs,
-            device=str(resolve_device(self.device)))
+            device=str(resolve_device(self.device)),
+            tree_backend=self.tree_backend)
 
     def fit_forest(self, X: np.ndarray, y: np.ndarray) -> "ForestKernel":
         self.forest = self._forest()

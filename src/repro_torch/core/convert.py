@@ -3,7 +3,8 @@
 ``forest_kernel_from_arrays`` rebuilds a port :class:`ForestKernel` from the
 arrays the reference's snapshot writer stores (``repro/core/snapshot.py``):
 ``tree_*`` as ``pack_trees`` gives them, ``inbag``, ``tree_weights``,
-``binner_*``, ``X``, ``y`` and the routed training ``leaves``.  The dict an
+``binner_*``, ``X``, ``y`` and the routed training ``leaves``, plus the
+manifest's ``base_score`` for a gradient-boosted kernel.  The dict an
 ``np.load`` of a v2 snapshot returns works as input.  The training set is
 not routed again and the SWLC factors are recomputed on the device from the
 saved leaves, so the result computes the same kernel as the source.
@@ -12,6 +13,7 @@ Checksum validation and a snapshot writer come in a later slice.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -28,17 +30,22 @@ _TREE_KEYS = ("node_offset", "depth", "feature", "threshold", "left",
               "right", "leaf_id", "value", "n_node_samples")
 
 
-def forest_kernel_from_arrays(arrays, config: dict,
-                              device="cuda") -> ForestKernel:
+def forest_kernel_from_arrays(arrays, config: dict, device="cuda",
+                              base_score: Optional[float] = None
+                              ) -> ForestKernel:
     """A port ``ForestKernel`` on ``device`` from saved reference arrays.
 
     ``config`` is the reference kernel's constructor config (a snapshot
     manifest's ``"config"``); keys the port has no counterpart for (engine,
     routing and trainer backends, out-of-core settings, dtype) are ignored,
-    because the port has one path for each.
+    because the port has one path for each: in particular the reference's
+    ``tree_backend`` ('native', 'jax', ...) is dropped, and the port's
+    resolves from ``device``.  ``base_score`` is the manifest's
+    ``"base_score"`` (a gradient-boosted kernel's initial score).
     """
     names = {f.name for f in dataclasses.fields(ForestKernel)}
-    kw = {k: v for k, v in config.items() if k in names and k != "device"}
+    kw = {k: v for k, v in config.items()
+          if k in names and k not in ("device", "tree_backend")}
     fk = ForestKernel(**kw, device=device)
     forest = fk._forest()
     forest.trees_ = unpack_trees({k: np.asarray(arrays[f"tree_{k}"])
@@ -57,6 +64,8 @@ def forest_kernel_from_arrays(arrays, config: dict,
     forest.y_ = np.asarray(arrays["y"])
     forest.tree_weights_ = np.asarray(arrays["tree_weights"],
                                       dtype=np.float64)
+    if base_score is not None and hasattr(forest, "base_score_"):
+        forest.base_score_ = float(base_score)
     forest._cache_tables()
     fk.forest = forest
     fk.ctx = EnsembleContext.from_forest(

@@ -8,20 +8,21 @@ expression in the same operation order, so the factors are bit-identical
 to the reference's.
 
 All functions return (N, T) float64 tensors; zeros are *structural* (they
-are dropped from the sparse factors).  ``ih`` and ``boosted`` come with the
-trainer slice, which ports gradient boosting.
+are dropped from the sparse factors).  ``ih`` (a host kNN over reference
+points) is not ported yet.
 """
 from __future__ import annotations
 
 import math
 from typing import Dict, Optional, Type
 
+import numpy as np
 import torch
 
 from .context import EnsembleContext
 
 __all__ = ["WeightAssignment", "Original", "KeRF", "SeparableOOB", "RFGAP",
-           "get_assignment", "ASSIGNMENTS"]
+           "Boosted", "get_assignment", "ASSIGNMENTS"]
 
 
 class WeightAssignment:
@@ -136,17 +137,32 @@ class RFGAP(WeightAssignment):
         return self._full(leaves, 1.0 / leaves.shape[1])
 
 
+class Boosted(WeightAssignment):
+    """Tree-weighted (GBT): q = w = sqrt(w_t / Σ w_s)  (B.6).
+
+    The (T,) per-tree factor is the reference's numpy expression on the
+    host (its pairwise sum and correctly rounded sqrt), broadcast on the
+    device.
+    """
+    name = "boosted"
+
+    def query_weights(self, leaves):
+        tw = self.ctx.tree_weights.cpu().numpy()
+        tw = tw / max(tw.sum(), 1e-300)
+        per_tree = torch.as_tensor(np.sqrt(tw), device=leaves.device)
+        return per_tree[None, :].expand(tuple(leaves.shape)).contiguous()
+
+
 ASSIGNMENTS: Dict[str, Type[WeightAssignment]] = {
-    c.name: c for c in [Original, KeRF, SeparableOOB, RFGAP]
+    c.name: c for c in [Original, KeRF, SeparableOOB, RFGAP, Boosted]
 }
-_LATER = {"ih": "instance-hardness", "boosted": "boosted"}
 
 
 def get_assignment(name: str, ctx: EnsembleContext) -> WeightAssignment:
-    if name in _LATER:
+    if name == "ih":
         raise NotImplementedError(
-            f"kernel_method {name!r} ({_LATER[name]} weights) is not ported "
-            "yet; it comes with gradient boosting in the trainer slice")
+            "kernel_method 'ih' (instance-hardness weights, a host kNN over "
+            "reference points) is not ported yet")
     if name not in ASSIGNMENTS:
         raise KeyError(f"unknown kernel_method {name!r}; have {sorted(ASSIGNMENTS)}")
     return ASSIGNMENTS[name](ctx)

@@ -6,7 +6,7 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["gaussian_classes", "train_test_split"]
+__all__ = ["gaussian_classes", "friedman1", "train_test_split"]
 
 
 def gaussian_classes(n: int, d: int = 20, n_classes: int = 7, informative: int = 10,
@@ -21,6 +21,16 @@ def gaussian_classes(n: int, d: int = 20, n_classes: int = 7, informative: int =
     X = np.empty((n, d))
     X[:, :informative] = centers[y, ci] + rng.normal(0, 1.0, size=(n, informative))
     X[:, informative:] = rng.normal(0, 1.0, size=(n, d - informative))
+    return X, y
+
+
+def friedman1(n: int, d: int = 10, noise: float = 1.0, seed: int = 0):
+    """Friedman #1 regression: 5 informative uniform features, the rest
+    noise, plus Gaussian target noise."""
+    rng = np.random.default_rng(seed)
+    X = rng.random((n, max(d, 5)))
+    y = (10 * np.sin(np.pi * X[:, 0] * X[:, 1]) + 20 * (X[:, 2] - 0.5) ** 2
+         + 10 * X[:, 3] + 5 * X[:, 4] + rng.normal(0, noise, n))
     return X, y
 
 

@@ -1,11 +1,13 @@
-"""Forest ensembles: RandomForest and ExtraTrees.
+"""Forest ensembles: RandomForest, ExtraTrees, GradientBoostedTrees.
 
 The "ensemble context" providers of the paper (§2.2): trees and routing plus
-the in-bag multiplicities and leaf payloads the SWLC weight assignments
-consume.  Trees grow on the host (numpy trainer, bit-identical to the
-reference's); routing and leaf-table gathers run on the forest's ``device``
-through the routing kernel.  ``GradientBoostedTrees`` comes with the trainer
-slice.
+the in-bag multiplicities, leaf payloads and tree weights the SWLC weight
+assignments consume.  Trees grow on the forest's ``device``
+(``tree_backend="auto"``): on the card as one level-synchronous batch
+through the histogram kernels, on the CPU with the host numpy trainer (both
+bit-identical to the reference's numpy trainer on integer payloads).
+Routing and leaf-table gathers run on the device through the routing
+kernel.
 """
 from __future__ import annotations
 
@@ -21,9 +23,12 @@ from ..device import resolve_device
 from ..kernels.leaf_route.ops import RouteTables, route, route_tables
 from .bootstrap import bootstrap_counts, oob_mask
 from .trees import Tree, TreeArrays, stack_leaf_values
-from .training import Binner, TreeParams, fit_tree_binned
+from .training import (Binner, TreeParams, _grow_trees, device_codes,
+                       fit_forest_binned, fit_tree_binned,
+                       resolve_tree_backend)
 
-__all__ = ["RandomForest", "ExtraTrees", "BaseForest"]
+__all__ = ["RandomForest", "ExtraTrees", "GradientBoostedTrees",
+           "BaseForest"]
 
 
 def _resolve_jobs(n_jobs: Optional[int], n_tasks: int) -> int:
@@ -60,8 +65,11 @@ class BaseForest:
     task: str = "classification"
     seed: int = 0
     splitter: str = "best"
-    n_jobs: int = 0                  # 0 -> auto (min(8, cpus)), 1 -> serial
-    device: str = "cuda"             # where routing and leaf gathers run
+    n_jobs: int = 0                  # host trainer: 0 -> auto (min(8,
+    #                                  cpus)), 1 -> serial
+    device: str = "cuda"             # where trees grow, route and gather
+    tree_backend: str = "auto"       # trainer: 'auto' | 'numpy' | 'torch'
+    tree_block: int = 0              # torch batch width (0 auto, <0 all)
 
     # fitted state
     trees_: Optional[List[Tree]] = None
@@ -82,10 +90,10 @@ class BaseForest:
             min_samples_leaf=self.min_samples_leaf,
             min_samples_split=self.min_samples_split,
             max_features=self.max_features, n_bins=self.n_bins,
-            splitter=self.splitter)
+            splitter=self.splitter, tree_backend=self.tree_backend)
 
     def fit(self, X: np.ndarray, y: np.ndarray) -> "BaseForest":
-        resolve_device(self.device)          # fail before training, not after
+        dev = resolve_device(self.device)    # fail before training, not after
         rng = np.random.default_rng(self.seed)
         X = np.asarray(X, dtype=np.float64)
         self.X_, self.y_ = X, y
@@ -103,18 +111,27 @@ class BaseForest:
         child_rngs = rng.spawn(self.n_trees)
         Xb = self.binner_.transform(X)
 
-        def fit_one(t: int) -> Tree:
-            w = self.inbag_[t]
-            sel = np.nonzero(w)[0]
-            return fit_tree_binned(Xb[sel], y[sel], w[sel].astype(np.float64),
-                                   params, child_rngs[t], self.binner_)
-
-        jobs = _resolve_jobs(self.n_jobs, self.n_trees)
-        if jobs == 1:
-            self.trees_ = [fit_one(t) for t in range(self.n_trees)]
+        if resolve_tree_backend(self.tree_backend, dev) == "torch":
+            # one level-synchronous batch: each level's histograms for every
+            # tree's frontier in one kernel launch per node chunk, with no
+            # thread pool on top
+            self.trees_ = fit_forest_binned(
+                Xb, y, self.inbag_, params, child_rngs, self.binner_,
+                backend="torch", tree_block=self.tree_block, device=dev)
         else:
-            with ThreadPoolExecutor(max_workers=jobs) as ex:
-                self.trees_ = list(ex.map(fit_one, range(self.n_trees)))
+            def fit_one(t: int) -> Tree:
+                w = self.inbag_[t]
+                sel = np.nonzero(w)[0]
+                return fit_tree_binned(Xb[sel], y[sel],
+                                       w[sel].astype(np.float64), params,
+                                       child_rngs[t], self.binner_)
+
+            jobs = _resolve_jobs(self.n_jobs, self.n_trees)
+            if jobs == 1:
+                self.trees_ = [fit_one(t) for t in range(self.n_trees)]
+            else:
+                with ThreadPoolExecutor(max_workers=jobs) as ex:
+                    self.trees_ = list(ex.map(fit_one, range(self.n_trees)))
         self.tree_weights_ = np.ones(self.n_trees, dtype=np.float64)
         self._cache_tables()
         return self
@@ -178,3 +195,97 @@ class RandomForest(BaseForest):
 class ExtraTrees(BaseForest):
     bootstrap: bool = False
     splitter: str = "random"
+
+
+@dataclasses.dataclass
+class GradientBoostedTrees(BaseForest):
+    """Squared-loss (regression) / logistic (binary) gradient boosting.
+
+    Per-tree contribution weights ``tree_weights_`` record the training-loss
+    improvement of each stage (clamped at >= 0), the empirical weighting used
+    by boosted proximities (Tan et al. 2020; paper §B.6).  Each stage's tree
+    grows on the forest's device and routes the training set through the
+    routing kernel; the stage update of ``F`` and the losses are the
+    reference's float64 host arithmetic, in its order.
+    """
+    learning_rate: float = 0.1
+    bootstrap: bool = False
+    max_features: Optional[str] = None
+    max_depth: int = 6
+
+    base_score_: float = 0.0
+
+    def fit(self, X: np.ndarray, y: np.ndarray) -> "GradientBoostedTrees":
+        dev = resolve_device(self.device)
+        rng = np.random.default_rng(self.seed)
+        X = np.asarray(X, dtype=np.float64)
+        self.X_, self.y_ = X, y
+        binary = self.task == "classification"
+        yf = np.asarray(y, dtype=np.float64)
+        if binary:
+            if not set(np.unique(yf)) <= {0.0, 1.0}:
+                raise ValueError("GBT classification is binary (labels 0/1)")
+            p0 = np.clip(yf.mean(), 1e-6, 1 - 1e-6)
+            self.base_score_ = float(np.log(p0 / (1 - p0)))
+            self.n_classes_ = 2
+        else:
+            self.base_score_ = float(yf.mean())
+            self.n_classes_ = 0
+        self.binner_ = Binner(X, self.n_bins, rng)
+        self.inbag_ = bootstrap_counts(len(X), self.n_trees, rng,
+                                       self.bootstrap)
+
+        params = self._params()
+        params.task = "regression"   # boosting fits residuals
+        params.n_classes = 0
+        backend = resolve_tree_backend(self.tree_backend, dev)
+        Xb = self.binner_.transform(X)
+        codes = device_codes(Xb, self.binner_, dev) \
+            if backend == "torch" else None
+        X_dev = torch.as_tensor(X, device=dev)
+        F = np.full(len(X), self.base_score_)
+        self.trees_ = []
+        tw = []
+
+        def loss(F):
+            if binary:
+                return float(np.mean(np.logaddexp(0.0, F) - yf * F))
+            return float(np.mean((yf - F) ** 2))
+
+        prev = loss(F)
+        for t in range(self.n_trees):
+            resid = (yf - 1.0 / (1.0 + np.exp(-F))) if binary else (yf - F)
+            w = self.inbag_[t]
+            sel = np.nonzero(w)[0].astype(np.int64)
+            task = (sel, w[sel].astype(np.float64), rng)
+            tr = _grow_trees(Xb, resid, [task], params, self.binner_,
+                             backend, dev, codes)[0]
+            self.trees_.append(tr)
+            leaves = route(X_dev, route_tables(TreeArrays.from_trees([tr]),
+                                               dev))[:, 0].cpu().numpy()
+            F = F + self.learning_rate * tr.leaf_values()[leaves, 1]
+            cur = loss(F)
+            tw.append(max(prev - cur, 0.0))
+            prev = cur
+        tw = np.asarray(tw)
+        self.tree_weights_ = tw / max(tw.sum(), 1e-12)
+        self._cache_tables()
+        return self
+
+    def _cache_tables(self) -> None:
+        super()._cache_tables()
+        # every stage is a regression tree: the table is its leaf means
+        self.leaf_table_ = torch.as_tensor(self.leaf_values_[:, 1:2],
+                                           device=self.leaf_table_.device)
+
+    def decision_function(self, X) -> torch.Tensor:
+        """(N,) float64 raw scores on the forest's device."""
+        gl = self._global_leaves(self.apply(X))
+        return self.base_score_ + \
+            self.learning_rate * _gather_sum(self.leaf_table_, gl)[:, 0]
+
+    def predict(self, X) -> torch.Tensor:
+        F = self.decision_function(X)
+        if self.task == "classification":
+            return (F > 0).to(torch.int64)
+        return F

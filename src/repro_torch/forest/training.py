@@ -1,20 +1,39 @@
-"""Level-wise histogram CART training on the host (numpy).
+"""Level-wise histogram CART training, on the host (numpy) or on a device
+(torch).
 
-Copy of the reference trainer's ``numpy`` backend: features are pre-binned to
-``n_bins`` quantile bins, and at each tree level the class/moment histograms
-of *all* active nodes are accumulated in one vectorized pass over a
-flattened (node, feature, bin[, class]) index, so growing to purity costs
-``O(N d depth)`` per tree.  Sibling histograms are derived as
+Copy of the reference trainer's level-synchronous driver: features are
+pre-binned to ``n_bins`` quantile bins, and at each tree level the
+class/moment histograms of *all* active nodes are accumulated in one pass
+over a flattened (node, feature, bin[, class]) index, so growing to purity
+costs ``O(N d depth)`` per tree.  Sibling histograms are derived as
 ``parent − smaller child`` while a tree's level is narrow (the
 histogram-subtraction trick), and children that can never split are dropped
 from the next frontier's sample set (early-leaf pruning).
 
-Every RNG draw happens here, per tree in the same chunked order as the
-reference, and split scores use the same float64 operation order with
-first-maximum tie-breaking, so trees are bit-identical to the reference's
-numpy (and hence native) backend.  The reference's native C and jax
-branches, its out-of-core (memmap) path and its metrics calls are not part
-of this copy; the device histogram kernels come with the trainer slice.
+Two backends, chosen by ``TreeParams.tree_backend`` (``resolve_tree_backend``):
+
+  ``numpy``  tiled ``np.bincount`` histograms and vectorized float64
+             scoring on the host (the reference's ``numpy`` backend);
+  ``torch``  the port of the reference's ``jax`` branch: the code matrix is
+             put on the device once, each level's histograms come from the
+             histogram kernels (``kernels/histogram``: K3 for classes, K4 for
+             the (w, w·y, w·y²) moments), sibling histograms are subtracted
+             in float32 on the device, the retained parent histograms stay
+             there, and splits are scored there in float64 in numpy's
+             operation order (``_score_torch``); only (nodes,)-sized results
+             come back.  On a CPU device the kernels' plain versions run;
+  ``auto``   ``torch`` on a CUDA device, ``numpy`` otherwise.
+
+Every RNG draw, the partition, early-leaf pruning and the split decisions
+stay on the host, per tree in the same chunked order as the reference, and
+split scores use the same float64 operation order with first-maximum
+tie-breaking.  So both backends grow trees bit-identical to the reference's
+numpy (and native) backend on integer payloads (bootstrap counts, class
+labels, integer targets), which float32 histograms hold exactly; on
+continuous payloads (gradient-boosting residuals) the float32 device
+histograms agree within the reference's ``jax`` backend bounds.  The
+reference's native C branch, its out-of-core (memmap) path and its metrics
+calls are not part of this copy.
 """
 from __future__ import annotations
 
@@ -22,10 +41,14 @@ import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from ..device import resolve_device
+from ..kernels.histogram import ops as hops
 from .trees import Tree
 
-__all__ = ["TreeParams", "Binner", "fit_tree_binned", "fit_forest_binned"]
+__all__ = ["TreeParams", "Binner", "fit_tree_binned", "fit_forest_binned",
+           "resolve_tree_backend"]
 
 _HIST_BUDGET = 1 << 26  # max float64 elements per histogram chunk (~512MB)
 _TILE_ELEMS = 1 << 20   # max elements per transient index tile
@@ -46,6 +69,7 @@ class TreeParams:
     max_features: Optional[str] = "sqrt"   # "sqrt" | "log2" | None (all) | int
     n_bins: int = 64
     splitter: str = "best"            # "best" (CART) | "random" (ExtraTrees)
+    tree_backend: str = "auto"        # "auto" | "numpy" | "torch"
 
     def n_feature_subset(self, d: int) -> int:
         mf = self.max_features
@@ -56,6 +80,24 @@ class TreeParams:
         if mf == "log2":
             return max(1, int(np.log2(d)))
         return max(1, min(int(mf), d))
+
+
+def resolve_tree_backend(backend: Optional[str], device=None) -> str:
+    """Resolve 'auto' | 'numpy' | 'torch' to a concrete trainer backend.
+
+    'auto' is 'torch' when ``device`` is a CUDA device and 'numpy' when it
+    is the CPU or None (the host trainer).  'torch' on a CUDA device runs
+    the histogram kernels and never their plain versions.  The reference's
+    'native' and 'jax' have no counterpart here and raise.
+    """
+    if backend in (None, "auto"):
+        if device is not None and resolve_device(device).type == "cuda":
+            return "torch"
+        return "numpy"
+    if backend in ("numpy", "torch"):
+        return backend
+    raise ValueError(f"unknown tree backend {backend!r}; have "
+                     "'auto' | 'numpy' | 'torch'")
 
 
 class Binner:
@@ -159,30 +201,36 @@ def _node_values(y: np.ndarray, w: np.ndarray, params: TreeParams) -> np.ndarray
 
 def fit_tree_binned(Xb: np.ndarray, y: np.ndarray, w: np.ndarray,
                     params: TreeParams, rng: np.random.Generator,
-                    binner: Binner) -> Tree:
+                    binner: Binner, device=None) -> Tree:
     """Grow one tree level-wise on pre-binned features.
 
     ``w`` are per-sample weights (bootstrap multiplicities); samples with
-    ``w == 0`` must be excluded by the caller (they are OOB).
+    ``w == 0`` must be excluded by the caller (they are OOB).  The backend
+    is ``params.tree_backend`` resolved against ``device``.
     """
+    backend = resolve_tree_backend(params.tree_backend, device)
     rows = np.arange(Xb.shape[0], dtype=np.int64)
     task = (rows, np.asarray(w, dtype=np.float64), rng)
     return _grow_trees(np.asarray(Xb), np.asarray(y), [task], params,
-                       binner)[0]
+                       binner, backend, device)[0]
 
 
 def fit_forest_binned(Xb: np.ndarray, y: np.ndarray, inbag: np.ndarray,
                       params: TreeParams, rngs: Sequence[np.random.Generator],
-                      binner: Binner, tree_block: int = 0) -> List[Tree]:
+                      binner: Binner, backend: Optional[str] = None,
+                      tree_block: int = 0, device=None) -> List[Tree]:
     """Grow a whole forest as level-synchronous batches of trees.
 
     Each level issues one histogram/score/partition pass spanning every
-    tree's frontier.  ``tree_block`` caps how many trees share a batch: 0
-    auto-sizes the cap so resident frontier state (~48 bytes per in-bag
-    instance) stays under ``_BATCH_BUDGET``; negative means all trees in one
-    batch.  Trees are bit-identical to growing each alone with its own RNG
-    stream.
+    tree's frontier.  ``backend`` (default ``params.tree_backend``) is
+    resolved against ``device``.  ``tree_block`` caps how many trees share
+    a batch: 0 auto-sizes the cap so resident frontier state (~48 bytes per
+    in-bag instance) stays under ``_BATCH_BUDGET``; negative means all
+    trees in one batch.  Trees are bit-identical to growing each alone with
+    its own RNG stream, on either backend.
     """
+    backend = resolve_tree_backend(
+        backend if backend is not None else params.tree_backend, device)
     T = inbag.shape[0]
     if tree_block == 0:
         m_avg = max(1.0, float((inbag > 0).sum()) / max(T, 1))
@@ -192,14 +240,28 @@ def fit_forest_binned(Xb: np.ndarray, y: np.ndarray, inbag: np.ndarray,
     else:
         block = max(1, int(tree_block))
     Xb = np.asarray(Xb)
+    codes = device_codes(Xb, binner, device) if backend == "torch" else None
     trees: List[Tree] = []
     for b0 in range(0, T, block):
         tasks = []
         for t in range(b0, min(b0 + block, T)):
             rows = np.nonzero(inbag[t])[0].astype(np.int64)
             tasks.append((rows, inbag[t, rows].astype(np.float64), rngs[t]))
-        trees += _grow_trees(Xb, y, tasks, params, binner)
+        trees += _grow_trees(Xb, y, tasks, params, binner, backend, device,
+                             codes)
     return trees
+
+
+def device_codes(Xb: np.ndarray, binner: Binner, device) -> torch.Tensor:
+    """The code matrix on the device, once per fit, as ``uint8`` (``int16``
+    past 256 bins) codes checked against ``binner.n_bins``."""
+    Xb = np.asarray(Xb)
+    if Xb.dtype not in (np.uint8, np.int16):
+        Xb = Xb.astype(binner.code_dtype)
+    if Xb.size and (int(Xb.max()) >= binner.n_bins or int(Xb.min()) < 0):
+        raise ValueError(f"bin codes outside [0, {binner.n_bins})")
+    dev = resolve_device("cuda" if device is None else device)
+    return torch.as_tensor(np.ascontiguousarray(Xb), device=dev)
 
 
 # --------------------------------------------------------------------------
@@ -421,6 +483,81 @@ def _best_splits(hist: np.ndarray, msl: float, cls: bool, random_split: bool,
     return g_best, f_best, b_best, node_tot
 
 
+def _score_torch(hist: torch.Tensor, msl: float, cls: bool,
+                 random_split: bool, u: Optional[np.ndarray],
+                 mask: Optional[np.ndarray]):
+    """``_best_splits`` on the histograms' device (the reference's
+    ``_jax_scorer``), returned as host arrays.
+
+    Float64, in numpy's operation order: the bin cumsum is a sequential
+    loop over bins (as ``np.cumsum``; torch's CUDA cumsum is not
+    deterministic), channel sums and squares are sequential, the two score
+    terms are added after dividing, and ``argmax`` takes the first maximum
+    (all ``-inf`` gives index 0, as in numpy).  On exact (integer-payload)
+    histograms the gains are therefore bit-equal to the numpy path's.
+    """
+    dev = hist.device
+    cum = hist.to(torch.float64, copy=True)
+    for b in range(1, cum.shape[2]):
+        cum[:, :, b] += cum[:, :, b - 1]
+    tot = cum[:, :, -1:, :]
+    R = tot - cum
+    if cls:
+        nL, nR = _sum_last_t(cum), _sum_last_t(R)
+        score = _sq_last_t(cum) / nL.clamp_min(1e-12)
+        score += _sq_last_t(R) / nR.clamp_min(1e-12)
+        p0 = tot[:, 0, 0, :]
+        parent = _sq_last_t(p0) / _sum_last_t(p0).clamp_min(1e-12)
+        gain = score - parent[:, None, None]
+        node_tot = p0
+    else:
+        nL, nR = cum[..., 0], R[..., 0]
+        score = cum[..., 1] * cum[..., 1] / nL.clamp_min(1e-12)
+        score += R[..., 1] * R[..., 1] / nR.clamp_min(1e-12)
+        t0 = tot[..., 0, :]
+        parent = t0[..., 1] * t0[..., 1] / t0[..., 0].clamp_min(1e-12)
+        gain = score - parent[:, :, None]
+        node_tot = tot[:, 0, 0, :]
+
+    valid = (nL >= msl) & (nR >= msl)
+    valid[:, :, -1] = False                       # last bin -> empty right side
+    gain = gain.masked_fill(~valid, -np.inf)
+    if random_split:
+        uu = torch.as_tensor(u, device=dev).masked_fill(~valid, -np.inf)
+        bins_choice = uu.argmax(dim=2)
+    else:
+        bins_choice = gain.argmax(dim=2)
+    gain = gain.gather(2, bins_choice[:, :, None])[:, :, 0]
+    if mask is not None:
+        gain = gain.masked_fill(~torch.as_tensor(mask, device=dev), -np.inf)
+    f_best = gain.argmax(dim=1)
+    g_best = gain.gather(1, f_best[:, None])[:, 0]
+    b_best = bins_choice.gather(1, f_best[:, None])[:, 0]
+    return (g_best.cpu().numpy(), f_best.cpu().numpy(),
+            b_best.cpu().numpy(), node_tot.cpu().numpy())
+
+
+def _sum_last_t(a: torch.Tensor) -> torch.Tensor:
+    s = a[..., 0].clone()
+    for c in range(1, a.shape[-1]):
+        s += a[..., c]
+    return s
+
+
+def _sq_last_t(a: torch.Tensor) -> torch.Tensor:
+    s = a[..., 0] * a[..., 0]
+    for c in range(1, a.shape[-1]):
+        s += a[..., c] * a[..., c]
+    return s
+
+
+def _take(a, idx: np.ndarray):
+    """``a[idx]`` for a host array or a device tensor (rows ``idx``)."""
+    if isinstance(a, torch.Tensor):
+        return a[torch.as_tensor(idx, device=a.device)]
+    return a[idx]
+
+
 def _ranges_concat(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
     """Concatenate index ranges [starts[k], starts[k]+lens[k]) into one array."""
     total = int(lens.sum())
@@ -465,14 +602,18 @@ def _partition_numpy(Xb: np.ndarray, rows: np.ndarray, w: np.ndarray,
 
 
 def _grow_trees(Xb: np.ndarray, y: np.ndarray, tasks: Sequence[tuple],
-                params: TreeParams, binner: Binner) -> List[Tree]:
+                params: TreeParams, binner: Binner, backend: str = "numpy",
+                device=None, codes: Optional[torch.Tensor] = None
+                ) -> List[Tree]:
     """Grow a batch of trees level-synchronously.
 
     ``tasks`` is a sequence of ``(rows, w, rng)`` — global sample indices
     into ``Xb``, per-instance weights, and the tree's RNG stream.  All RNG
     consumption happens here, per tree in the same chunked order regardless
-    of batch width, which is what makes batched and per-tree growth
-    bit-identical.
+    of batch width or backend, which is what makes batched and per-tree
+    growth, and both backends, bit-identical.  The ``torch`` backend runs
+    on ``device`` (default the card) from ``codes``, the code matrix already
+    there (``device_codes``; made here when None).
     """
     n_all, d = Xb.shape
     B = int(binner.n_bins)
@@ -492,6 +633,30 @@ def _grow_trees(Xb: np.ndarray, y: np.ndarray, tasks: Sequence[tuple],
         chunk_nodes -= chunk_nodes % 2
     sub_on = chunk_nodes % 2 == 0
     yc = y.astype(np.int64) if cls else np.asarray(y, dtype=np.float64)
+    use_torch = backend == "torch"
+    if use_torch:
+        if codes is None:
+            codes = device_codes(Xb, binner, device)
+        dev = codes.device
+        y_dev = torch.as_tensor(yc.astype(np.int32) if cls else yc,
+                                device=dev)
+
+        def as_dev(a: np.ndarray) -> torch.Tensor:
+            return torch.as_tensor(a, device=dev)
+
+        def torch_hist(r: torch.Tensor, wv: torch.Tensor,
+                       counts: np.ndarray, nn: int) -> torch.Tensor:
+            """Device histograms of ``nn`` nodes whose samples (code rows
+            ``r``, weights ``wv``) lie in node order, ``counts`` a node."""
+            node = torch.repeat_interleave(
+                torch.arange(nn, dtype=torch.int32, device=dev),
+                as_dev(counts), output_size=len(r))
+            if cls:
+                return hops.histogram(codes, node, y_dev[r], wv.float(), nn,
+                                      B, C, rows=r)
+            yv = y_dev[r]
+            wm = torch.stack([wv, wv * yv, wv * (yv * yv)], dim=1).float()
+            return hops.moments(codes, node, wm, nn, B, rows=r)
 
     stores: List[_TreeStore] = []
     acts: List[np.ndarray] = []      # per-tree active node ids (store ids)
@@ -526,6 +691,8 @@ def _grow_trees(Xb: np.ndarray, y: np.ndarray, tasks: Sequence[tuple],
     depth = 0
     while live and depth < params.max_depth:
         depth += 1
+        if use_torch:
+            rows_dev, w_dev = as_dev(rows_g), as_dev(w_g)
         g_sizes = np.array([len(acts[t]) for t in live], np.int64)
         node_off = np.concatenate([[0], np.cumsum(g_sizes)]).astype(np.int64)
         G = int(node_off[-1])
@@ -619,8 +786,12 @@ def _grow_trees(Xb: np.ndarray, y: np.ndarray, tasks: Sequence[tuple],
             all_direct = dm_ch is None or bool(dm_ch.all())
 
             if all_direct:
-                hist = _hist_numpy(Xb, rows_g[s0:s1], w_g[s0:s1],
-                                   y_g[s0:s1], bch, d, B, C, cls)
+                if use_torch:
+                    hist = torch_hist(rows_dev[s0:s1], w_dev[s0:s1],
+                                      np.diff(bch), gcc)
+                else:
+                    hist = _hist_numpy(Xb, rows_g[s0:s1], w_g[s0:s1],
+                                       y_g[s0:s1], bch, d, B, C, cls)
             else:
                 dn = np.flatnonzero(dm_ch)
                 dl = np.flatnonzero(~dm_ch)
@@ -629,12 +800,20 @@ def _grow_trees(Xb: np.ndarray, y: np.ndarray, tasks: Sequence[tuple],
                 sel = _ranges_concat(d_starts, d_lens)
                 bnd_d = np.concatenate([[0], np.cumsum(d_lens)]) \
                     .astype(np.int64)
-                h_dir = _hist_numpy(Xb, np.ascontiguousarray(rows_g[sel]),
-                                    np.ascontiguousarray(w_g[sel]),
-                                    np.ascontiguousarray(y_g[sel]), bnd_d,
-                                    d, B, C, cls)
-                hist = np.empty((gcc, d, B, C), np.float64)
-                hist[dn] = h_dir
+                if use_torch:
+                    sel_dev = as_dev(sel)
+                    h_dir = torch_hist(rows_dev[sel_dev], w_dev[sel_dev],
+                                       d_lens, len(dn))
+                    hist = torch.empty((gcc, d, B, C), dtype=torch.float32,
+                                       device=dev)
+                    hist[as_dev(dn)] = h_dir
+                else:
+                    h_dir = _hist_numpy(
+                        Xb, np.ascontiguousarray(rows_g[sel]),
+                        np.ascontiguousarray(w_g[sel]),
+                        np.ascontiguousarray(y_g[sel]), bnd_d, d, B, C, cls)
+                    hist = np.empty((gcc, d, B, C), np.float64)
+                    hist[dn] = h_dir
                 # stacked retained-parent hist rows aligned with ``dl``
                 # (trees ascend with node index, so per-tree parts
                 # concatenate in ``dl`` order)
@@ -647,9 +826,15 @@ def _grow_trees(Xb: np.ndarray, y: np.ndarray, tasks: Sequence[tuple],
                     o1i = int(node_off[i + 1])
                     g_dl = dl[(dl + c0 >= o0i) & (dl + c0 < o1i)]
                     if len(g_dl):
-                        parts.append(rh[der_par[g_dl + c0]])
-                par = np.concatenate(parts, axis=0)
-                hist[dl] = par - hist[der_sib[dl + c0] - c0]
+                        parts.append(_take(rh, der_par[g_dl + c0]))
+                # float32 on the device, float64 on the host; exact either
+                # way on integer payloads
+                sib = der_sib[dl + c0] - c0
+                if use_torch:
+                    hist[as_dev(dl)] = torch.cat(parts, dim=0) - \
+                        hist[as_dev(sib)]
+                else:
+                    hist[dl] = np.concatenate(parts, axis=0) - hist[sib]
 
             if has_stash:
                 for i in range(i_lo, i_hi + 1):
@@ -658,12 +843,14 @@ def _grow_trees(Xb: np.ndarray, y: np.ndarray, tasks: Sequence[tuple],
                     o0i, o1i = int(node_off[i]), int(node_off[i + 1])
                     lo, hi = max(o0i, c0), min(o1i, c1)
                     if lo < hi:
+                        sl = hist[lo - c0:hi - c0]
                         pend.setdefault(live[i], []).append(
-                            hist[lo - c0:hi - c0].copy())
+                            sl if use_torch else sl.copy())
 
+            score = _score_torch if use_torch else _best_splits
             (best_gain[c0:c1], best_f[c0:c1], best_b[c0:c1],
-             node_tot[c0:c1]) = _best_splits(hist, msl, cls, random_split,
-                                             u_ch, m_ch)
+             node_tot[c0:c1]) = score(hist, msl, cls, random_split, u_ch,
+                                      m_ch)
 
         # ---- split / leaf decisions, vectorized over every tree's nodes ----
         nw = node_tot.sum(1) if cls else node_tot[:, 0]
@@ -742,9 +929,10 @@ def _grow_trees(Xb: np.ndarray, y: np.ndarray, tasks: Sequence[tuple],
                 # retain this level's split-node histograms (split-rank
                 # rows) + the children's known-leaf flags for next level's
                 # sibling subtraction
-                full_h = parts[0] if len(parts) == 1 else \
-                    np.concatenate(parts, axis=0)
-                new_ret_h[t] = full_h[np.flatnonzero(sp)]
+                full_h = parts[0] if len(parts) == 1 else (
+                    torch.cat(parts, dim=0) if use_torch
+                    else np.concatenate(parts, axis=0))
+                new_ret_h[t] = _take(full_h, np.flatnonzero(sp))
                 new_ret_kl[t] = known_leaf[2 * s_lo:2 * s_hi].copy()
             acts[t] = cid
             new_live.append(t)

@@ -8,7 +8,8 @@ written under ``kernels/_build/`` (listed in ``.gitignore``), so a changed
 source rebuilds and an unchanged one is reused within a checkout.
 
 ``--use_fast_math`` is deliberately absent: routing relies on ``x <= thr``
-being false for NaN, and the proximity kernel on IEEE float64 products.
+being false for NaN, the proximity kernel on IEEE float64 products, and
+the histogram kernels on plain float32 adds in a fixed order.
 
 A missing toolkit, a failed build or a missing card raises; nothing here
 selects a plain version instead.
@@ -28,7 +29,7 @@ __all__ = ["KERNEL_NAMES", "build", "load", "check", "nvcc_path"]
 
 _ROOT = Path(__file__).resolve().parent
 BUILD_DIR = _ROOT / "_build"
-KERNEL_NAMES = ("leaf_route", "block_prox")
+KERNEL_NAMES = ("leaf_route", "block_prox", "histogram")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

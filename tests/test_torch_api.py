@@ -6,14 +6,18 @@ trees and build the same factors, bit for bit, as the reference
 same seed, and serve every op within 1e-8 of it.  The entry points run on
 the card unless the caller asks for the CPU, and never fall back.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
 
 from repro.core.api import ForestKernel as RefKernel
-from repro.data.synthetic import gaussian_classes, train_test_split
+from repro.data.synthetic import friedman1, gaussian_classes, train_test_split
 from repro_torch import resolve_device
 from repro_torch.core.api import ForestKernel
+from repro_torch.core.convert import forest_kernel_from_arrays
+from repro_torch.forest import training
 from repro_torch.forest.ensemble import RandomForest
 
 ATOL = 1e-8
@@ -122,11 +126,16 @@ def test_cuda_requested_without_a_card_raises(data, monkeypatch):
 
 
 def test_unported_options_raise(data):
+    """Gradient boosting is ported now; the instance-hardness rule and the
+    reference's own trainer backends are not, and raise."""
     Xtr, ytr, _, _ = data
-    with pytest.raises(NotImplementedError, match="gbt"):
-        ForestKernel(model_type="gbt", device="cpu").fit(Xtr, ytr)
     with pytest.raises(NotImplementedError, match="ih"):
         ForestKernel(kernel_method="ih", n_trees=2, device="cpu").fit(Xtr, ytr)
+    with pytest.raises(ValueError, match="tree backend"):
+        ForestKernel(tree_backend="native", n_trees=2,
+                     device="cpu").fit(Xtr, ytr)
+    with pytest.raises(ValueError, match="model_type"):
+        ForestKernel(model_type="xgb", device="cpu").fit(Xtr, ytr)
 
 
 def test_quickstart_twin_runs_on_cpu(capsys):
@@ -134,3 +143,103 @@ def test_quickstart_twin_runs_on_cpu(capsys):
     res = main(n=700, n_trees=6, device="cpu")
     assert res["test_acc"] > 0.5 and res["nnz"] > 0
     assert "leaf-PCA" in capsys.readouterr().out
+
+
+@pytest.fixture(scope="module")
+def reg_data():
+    X, y = friedman1(700, d=8, seed=6)
+    return train_test_split(X, y, test_frac=0.2, seed=1)
+
+
+GBT_KW = dict(model_type="gbt", task="regression", kernel_method="boosted",
+              n_trees=10, max_depth=4, seed=2)
+
+
+def _ops_close(port, ref, Xtr, ytr, Xte):
+    def close(a, b):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=0, atol=ATOL)
+    close(port.predict(), ref.predict())
+    close(port.predict(Xte), ref.predict(Xte))
+    close(port.row_sums(), ref.row_sums())
+    close(port.row_sums(Xte), ref.row_sums(Xte))
+    close(port.kernel_block(np.arange(20)), ref.kernel_block(np.arange(20)))
+    close(port.kernel_block(None, X_rows=Xte[:15]),
+          ref.kernel_block(None, X_rows=Xte[:15]))
+    close(port.topk(5)[1], ref.topk(5)[1])
+    close(port.topk(5, X=Xte)[1], ref.engine.topk(5, X=Xte)[1])
+    assert (port.kernel() != ref.kernel()).nnz == 0
+
+
+def test_gbt_boosted_matches_reference_scipy_engine(reg_data):
+    """model_type='gbt' with kernel_method='boosted': same trees, tree
+    weights and factors bit for bit as the reference's scipy engine, ops
+    within 1e-8."""
+    Xtr, ytr, Xte, _ = reg_data
+    ref = RefKernel(routing_backend="numpy", tree_backend="numpy",
+                    engine_backend="scipy", **GBT_KW).fit(Xtr, ytr)
+    port = ForestKernel(device="cpu", **GBT_KW).fit(Xtr, ytr)
+    for a, b in zip(ref.forest.trees_, port.forest.trees_):
+        np.testing.assert_array_equal(a.threshold, b.threshold)
+        np.testing.assert_array_equal(a.value, b.value)
+    np.testing.assert_array_equal(port.forest.tree_weights_,
+                                  ref.forest.tree_weights_)
+    assert port.forest.base_score_ == ref.forest.base_score_
+    np.testing.assert_array_equal(_np(port.engine.gl), ref.engine.gl)
+    np.testing.assert_array_equal(_np(port.engine.q), ref.engine.q)
+    np.testing.assert_array_equal(_np(port.engine.w), ref.engine.w)
+    np.testing.assert_allclose(_np(port.forest.predict(Xte)),
+                               ref.forest.predict(Xte), rtol=0, atol=1e-10)
+    _ops_close(port, ref, Xtr, ytr, Xte)
+
+
+def test_gbt_snapshot_carries_across(reg_data, tmp_path):
+    """A reference gbt kernel, saved by its snapshot writer, comes across
+    with its base score and tree weights and serves the same ops."""
+    Xtr, ytr, Xte, _ = reg_data
+    ref = RefKernel(engine_backend="scipy", tree_backend="native",
+                    **GBT_KW).fit(Xtr, ytr)
+    path = tmp_path / "gbt.npz"
+    ref.save(path)
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files}
+    manifest = json.loads(bytes(arrays.pop("manifest")).decode())
+    assert manifest["config"]["tree_backend"] == "native"   # dropped
+    port = forest_kernel_from_arrays(arrays, manifest["config"],
+                                     device="cpu",
+                                     base_score=manifest["base_score"])
+    assert port.forest.base_score_ == ref.forest.base_score_
+    np.testing.assert_array_equal(port.forest.tree_weights_,
+                                  ref.forest.tree_weights_)
+    np.testing.assert_allclose(_np(port.forest.decision_function(Xte)),
+                               ref.forest.decision_function(Xte), rtol=0,
+                               atol=1e-10)
+    np.testing.assert_array_equal(_np(port.engine.q), ref.engine.q)
+    _ops_close(port, ref, Xtr, ytr, Xte)
+
+
+def test_auto_tree_backend_is_the_host_trainer_on_the_cpu(data, monkeypatch):
+    """tree_backend='auto' on the CPU grows trees with the host numpy
+    trainer (no histogram wrapper is called); 'torch' on the CPU runs the
+    device driver through the plain versions, with the same trees."""
+    Xtr, ytr, _, _ = data
+    calls = []
+    real = training.hops
+
+    class Spy:
+        def histogram(self, *a, **k):
+            calls.append("histogram")
+            return real.histogram(*a, **k)
+
+        def moments(self, *a, **k):
+            calls.append("moments")
+            return real.moments(*a, **k)
+
+    monkeypatch.setattr(training, "hops", Spy())
+    auto = ForestKernel(device="cpu", n_trees=4, seed=1).fit_forest(Xtr, ytr)
+    assert calls == []
+    dev = ForestKernel(device="cpu", n_trees=4, seed=1,
+                       tree_backend="torch").fit_forest(Xtr, ytr)
+    assert calls and set(calls) == {"histogram"}
+    for a, b in zip(auto.forest.trees_, dev.forest.trees_):
+        np.testing.assert_array_equal(a.threshold, b.threshold)
+        np.testing.assert_array_equal(a.value, b.value)

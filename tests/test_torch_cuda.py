@@ -157,3 +157,169 @@ def test_large_train_side_jobs_stay_on_the_card(dev, monkeypatch):
     P = cpu.engine.kernel_block()
     torch.testing.assert_close(P.gather(1, got_i.cpu()), got_v.cpu(),
                                rtol=0, atol=1e-8)
+
+
+# ------------------------------------------------------------ K3 / K4
+
+def _hist_inputs(rng, n, n_nodes, d, n_bins, C, dev, sort=True,
+                 integer=True, n_rows=None):
+    """Codes (uint8, or int16 past 256 bins), node ids with some nodes
+    empty, labels, weights (bootstrap-like integers or continuous), row ids
+    into a larger code matrix."""
+    code_dt = torch.uint8 if n_bins <= 256 else torch.int16
+    n_rows = n_rows or n
+    xb = torch.as_tensor(rng.integers(0, n_bins, (n_rows, d)),
+                         dtype=code_dt, device=dev)
+    node = rng.integers(0, n_nodes, n)
+    node[node % 4 == 1] = 0                      # leaves odd nodes empty
+    if sort:
+        node = np.sort(node)
+    y = rng.integers(0, C, n)
+    w = rng.integers(0, 4, n).astype(np.float32) if integer else \
+        rng.normal(size=n).astype(np.float32)
+    rows = rng.integers(0, n_rows, n)
+    as_t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev)  # noqa
+    return (xb, as_t(node, torch.int32), as_t(y, torch.int32),
+            as_t(w, torch.float32), as_t(rows, torch.int64))
+
+
+def _f64_moments(xb, node, wm, n_nodes, n_bins):
+    """The moments in float64 on the host: the exact sums to within
+    float64 rounding."""
+    xb, node, wm = xb.cpu(), node.cpu(), wm.cpu().double()
+    n, d = xb.shape
+    k = wm.shape[1]
+    flat = (node.long()[:, None] * d + torch.arange(d)) * n_bins + xb.long()
+    out = torch.zeros((n_nodes * d * n_bins, k), dtype=torch.float64)
+    out.index_add_(0, flat.reshape(-1),
+                   wm[:, None, :].expand(n, d, k).reshape(-1, k))
+    return out.reshape(n_nodes, d, n_bins, k)
+
+
+def _plain_hist(xb, node, y, w, n_nodes, n_bins, C, rows):
+    from repro_torch.kernels.histogram.ref import histogram_ref
+    return histogram_ref(xb[rows], node, y, w, n_nodes, n_bins, C)
+
+
+@pytest.mark.parametrize("n,n_nodes,d,n_bins,C", [
+    (1, 1, 1, 2, 2), (1000, 3, 5, 16, 3), (5000, 65, 20, 64, 7),
+    (3000, 300, 7, 300, 2), (777, 2, 1, 2, 3), (30_000, 3, 20, 64, 7),
+    (300_000, 1, 4, 16, 2)])
+@pytest.mark.parametrize("sort", [True, False])
+def test_histogram_kernel_exact_on_integer_weights(dev, n, n_nodes, d,
+                                                   n_bins, C, sort):
+    from repro_torch.kernels.histogram.ops import histogram
+    rng = np.random.default_rng(n + d + n_bins)
+    xb, node, y, w, rows = _hist_inputs(rng, n, n_nodes, d, n_bins, C, dev,
+                                        sort=sort, n_rows=n + 17)
+    n0 = histogram.launches
+    got = histogram(xb, node, y, w, n_nodes, n_bins, C, rows=rows)
+    torch.cuda.synchronize()
+    assert histogram.launches == n0 + 1
+    assert torch.equal(got, _plain_hist(xb, node, y, w, n_nodes, n_bins, C,
+                                        rows))
+
+
+@pytest.mark.parametrize("n,n_nodes,d,n_bins,K", [
+    (1, 1, 1, 2, 1), (4000, 3, 5, 16, 3), (50_000, 1, 20, 64, 3),
+    (3000, 65, 6, 300, 2)])
+def test_moments_kernel_exact_and_deterministic(dev, n, n_nodes, d, n_bins,
+                                                K):
+    from repro_torch.kernels.histogram.ops import moments
+    from repro_torch.kernels.histogram.ref import moments_ref
+    rng = np.random.default_rng(n + K)
+    xb, node, _, _, rows = _hist_inputs(rng, n, n_nodes, d, n_bins, 2, dev,
+                                        n_rows=n)
+    wm_int = torch.as_tensor(rng.integers(-3, 9, (n, K)),
+                             dtype=torch.float32, device=dev)
+    got = moments(xb, node, wm_int, n_nodes, n_bins, rows=rows)
+    assert torch.equal(got, moments_ref(xb[rows], node, wm_int, n_nodes,
+                                        n_bins, K))
+    wm = torch.as_tensor(rng.normal(size=(n, K)) * 5, dtype=torch.float32,
+                         device=dev)
+    a = moments(xb, node, wm, n_nodes, n_bins, rows=rows)
+    b = moments(xb, node, wm, n_nodes, n_bins, rows=rows)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)                         # same bits every launch
+    want = _f64_moments(xb[rows], node, wm, n_nodes, n_bins)
+    scale = _f64_moments(xb[rows], node, wm.abs(), n_nodes, n_bins)
+    # float32 sums of up to n terms: each add rounds by <= 2^-24 of the
+    # running |sum| <= the bin's sum of |payload|
+    assert torch.all((a.cpu().double() - want).abs()
+                     <= n * 2.0 ** -24 * scale + 1e-6)
+
+
+def test_histogram_kernel_slices_features_past_shared_memory(dev):
+    """40 features x 256 bins x 7 classes need 287 KB a node, more than a
+    block's shared memory: the kernel slices features.  300 bins x 200
+    classes do not fit even one feature: the warps accumulate in device
+    memory.  Both equal the plain version."""
+    from repro_torch.kernels.histogram.ops import histogram, slice_plan
+    limit = torch.cuda.get_device_properties(dev) \
+        .shared_memory_per_block_optin
+    for n, n_nodes, d, n_bins, C, want_smem in [
+            (6000, 5, 40, 256, 7, True), (3000, 3, 3, 300, 200, False)]:
+        ds, smem = slice_plan(d, n_bins, C, 1, True, limit)
+        assert smem is want_smem and (ds < d or not smem)
+        rng = np.random.default_rng(d)
+        xb, node, y, w, rows = _hist_inputs(rng, n, n_nodes, d, n_bins, C,
+                                            dev)
+        got = histogram(xb, node, y, w, n_nodes, n_bins, C, rows=rows)
+        assert torch.equal(got, _plain_hist(xb, node, y, w, n_nodes, n_bins,
+                                            C, rows))
+
+
+def test_histogram_kernel_empty_and_zero_weights(dev):
+    from repro_torch.kernels.histogram.ops import histogram
+    rng = np.random.default_rng(5)
+    xb, node, y, w, rows = _hist_inputs(rng, 500, 9, 4, 16, 3, dev)
+    zero = histogram(xb, node, y, torch.zeros_like(w), 9, 16, 3, rows=rows)
+    assert torch.equal(zero, torch.zeros_like(zero))
+    e = histogram(xb, node[:0], y[:0], w[:0], 9, 16, 3, rows=rows[:0])
+    assert e.shape == (9, 4, 16, 3) and not e.any()
+    with pytest.raises(IndexError):
+        histogram(xb, node, y, w, 9, 16, 3, rows=rows + xb.shape[0])
+
+
+@pytest.mark.parametrize("model,task", [("RandomForest", "classification"),
+                                        ("ExtraTrees", "classification"),
+                                        ("RandomForest", "regression"),
+                                        ("ExtraTrees", "regression")])
+def test_card_trees_equal_host_trees(dev, model, task):
+    """The trainer on the card (K3/K4) grows the host trainer's trees bit
+    for bit on integer payloads."""
+    from repro_torch.data.synthetic import gaussian_classes
+    from repro_torch.forest import ensemble
+    from repro_torch.kernels.histogram.ops import histogram, moments
+    rng = np.random.default_rng(1)
+    if task == "classification":
+        X, y = gaussian_classes(3000, d=12, n_classes=5, seed=2)
+    else:
+        X = rng.random((3000, 12))
+        y = np.floor(X[:, 0] * 5 + X[:, 1] * 3)
+    kw = dict(n_trees=6, seed=3, task=task)
+    n0 = histogram.launches + moments.launches
+    card = getattr(ensemble, model)(device="cuda", **kw).fit(X, y)
+    assert histogram.launches + moments.launches > n0
+    host = getattr(ensemble, model)(device="cuda", tree_backend="numpy",
+                                    **kw).fit(X, y)
+    for a, b in zip(card.trees_, host.trees_):
+        for f in ("feature", "threshold", "left", "right", "leaf_id",
+                  "value", "n_node_samples"):
+            assert np.array_equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_gbt_on_the_card_is_deterministic_and_agrees(dev):
+    from repro_torch.data.synthetic import friedman1
+    from repro_torch.forest.ensemble import GradientBoostedTrees
+    X, y = friedman1(4000, d=10, seed=4)
+    kw = dict(n_trees=12, seed=0, task="regression")
+    a = GradientBoostedTrees(device="cuda", **kw).fit(X, y)
+    b = GradientBoostedTrees(device="cuda", **kw).fit(X, y)
+    for s, t in zip(a.trees_, b.trees_):
+        assert np.array_equal(s.threshold, t.threshold)
+        assert np.array_equal(s.value, t.value)
+    host = GradientBoostedTrees(device="cuda", tree_backend="numpy",
+                                **kw).fit(X, y)
+    err = (a.predict(X) - host.predict(X)).abs().max().item()
+    assert err <= 0.05 * y.std()

@@ -25,6 +25,8 @@ from repro_torch.forest.trees import (TreeArrays, route_forest_batched,
 from repro_torch.kernels import _build
 from repro_torch.kernels.block_prox import ops as bp_ops
 from repro_torch.kernels.block_prox.ops import block_prox
+from repro_torch.kernels.histogram import ops as h_ops
+from repro_torch.kernels.histogram.ops import histogram, moments
 from repro_torch.kernels.leaf_route import ops as lr_ops
 from repro_torch.kernels.leaf_route.ops import route, route_tables
 
@@ -209,6 +211,8 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu(monkeypatch):
         raise AssertionError("plain version called for a non-CPU tensor")
     monkeypatch.setattr(lr_ops, "route_ref", forbidden)
     monkeypatch.setattr(bp_ops, "block_prox_ref", forbidden)
+    monkeypatch.setattr(h_ops, "histogram_ref", forbidden)
+    monkeypatch.setattr(h_ops, "moments_ref", forbidden)
     meta = torch.device("meta")
     g = torch.empty((4, 3), dtype=torch.int32, device=meta)
     v = torch.empty((4, 3), dtype=torch.float64, device=meta)
@@ -220,6 +224,14 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu(monkeypatch):
     tables = route_tables(ta, meta)
     with pytest.raises(ValueError, match="cuda"):
         route(torch.empty((5, 3), dtype=torch.float64, device=meta), tables)
+    xb = torch.empty((6, 2), dtype=torch.uint8, device=meta)
+    i32 = torch.empty(6, dtype=torch.int32, device=meta)
+    f32 = torch.empty(6, dtype=torch.float32, device=meta)
+    with pytest.raises(ValueError, match="cuda"):
+        histogram(xb, i32, i32, f32, 3, 4, 2)
+    with pytest.raises(ValueError, match="cuda"):
+        moments(xb, i32, torch.empty((6, 3), dtype=torch.float32,
+                                     device=meta), 3, 4)
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -232,5 +244,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_libs", {})
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.load("block_prox")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.load("histogram")
     with pytest.raises(ValueError):
         _build.build(["no_such_kernel"])
