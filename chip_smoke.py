@@ -22,8 +22,13 @@
    bit-exact on the acceptance forest and on a deep forest whose node
    tables exceed a block's shared memory, the proximity block within 1e-10,
    K3 at the acceptance level-1 shape and K4 at the GBT root shape
-   bit-exact on integer payloads, K4 on continuous payloads within float32
-   rounding of float64 sums and bit-identical across launches;
+   bit-exact on integer payloads, both bit for bit equal to the ordered
+   oracle (``histogram_ordered``/``moments_ordered``) on integer and
+   continuous payloads, K4 on continuous payloads within float32 rounding
+   of float64 sums and bit-identical across launches; K3/K4 are timed as
+   the trainer calls them (host node bounds) and with device node ids,
+   with their device time, the device ops of one call, and the kernel mode
+   the wrapper did not pick (same bits) timed beside the one it picked;
 6. prints one ``{"kernels": [...]}`` line (launches on the main and GBT
    paths, errors, kernel / plain / library times and the least time the
    card could take), the card's name and power limit, and as its last line
@@ -87,9 +92,11 @@ def same_trees(a, b, what):
 
 
 def cuda_ms(torch, fn, reps):
-    """Mean milliseconds per call over ``reps`` calls after one warm-up,
-    from CUDA events around the whole run."""
-    fn()
+    """Mean milliseconds per call over ``reps`` calls after as many warm-up
+    calls (so that caches, pinned host buffers included, reach their steady
+    state), from CUDA events around the whole run."""
+    for _ in range(reps):
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -102,27 +109,56 @@ def cuda_ms(torch, fn, reps):
 
 
 def device_kernels(torch, fn):
-    """Run ``fn`` under ``torch.profiler``; returns its result and the
-    device milliseconds of each kernel name over the run."""
+    """Run ``fn`` under ``torch.profiler``; returns its result, the device
+    milliseconds of each kernel (or copy) name over the run and how many
+    times each ran."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    times = {}
+    times, counts = {}, {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = e.self_cuda_time_total
             times[e.key] = times.get(e.key, 0.0) + us / 1e3
-    return out, times
+            counts[e.key] = counts.get(e.key, 0) + e.count
+    return out, times, counts
 
 
 def hist_kernel_ms(times):
     """Device ms of the histogram source's kernels (K3/K4 and the reduce
     pass) in a profile."""
     return sum(v for k, v in times.items() if "histogram" in k)
+
+
+def hist_call_ms(times, counts):
+    """Device ms a call of the histogram source's kernels, from a profile
+    of several calls: the main kernel's and the reduce pass's time each
+    divided by the number of their launches the profile caught (it may
+    miss some at its start)."""
+    return sum(times[k] / counts[k] for k in times if "histogram" in k)
+
+
+def ops_per_call(counts):
+    """Device work a call issues, from ``device_kernels`` counts over calls
+    that each launch the histogram kernel once: ``{short name: count a
+    call}``."""
+    calls = max(v for k, v in counts.items()
+                if k.startswith("void histogram_") and "_kernel<" in k)
+    return {k.split("(")[0].replace("void ", ""): v / calls
+            for k, v in sorted(counts.items())}
+
+
+def same_bits(a, b):
+    """Two float32 arrays (tensors or numpy) equal bit for bit."""
+    a = a.detach().cpu().numpy() if hasattr(a, "detach") else np.asarray(a)
+    b = b.detach().cpu().numpy() if hasattr(b, "detach") else np.asarray(b)
+    return a.shape == b.shape and np.array_equal(
+        np.ascontiguousarray(a, np.float32).view(np.uint32),
+        np.ascontiguousarray(b, np.float32).view(np.uint32))
 
 
 def main() -> int:
@@ -142,8 +178,13 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.block_prox.ops import block_prox
     from repro_torch.kernels.block_prox.ref import block_prox_ref
-    from repro_torch.kernels.histogram.ops import histogram, moments
-    from repro_torch.kernels.histogram.ref import histogram_ref, moments_ref
+    from repro_torch.kernels.histogram import ops as h_ops
+    from repro_torch.kernels.histogram.ops import (histogram, moments,
+                                                   work_items)
+    from repro_torch.kernels.histogram.ref import (histogram_ordered,
+                                                   histogram_ref,
+                                                   moments_ordered,
+                                                   moments_ref)
     from repro_torch.kernels.leaf_route.ops import route
     from repro_torch.kernels.leaf_route.ref import route_ref
     wrappers = {"leaf_route": route, "block_prox": block_prox,
@@ -341,7 +382,7 @@ def main() -> int:
     same_trees(fk.forest.trees_, again.trees_, "second card fit")
     # the device's own view, from a third fit under torch.profiler (which
     # slows the host, so its wall time is not used)
-    third, fit_kernels = device_kernels(torch, card_rf)
+    third, fit_kernels, _ = device_kernels(torch, card_rf)
     same_trees(fk.forest.trees_, third.trees_, "profiled card fit")
     busy = sum(fit_kernels.values()) / 1e3
     print(f"card fit {wall['fit_forest']:.3f} s vs host numpy fit "
@@ -476,37 +517,84 @@ def main() -> int:
     lib_err = max_err(torch.sparse.mm(W_dev, QrT).t(), k2_out)
     k2_lib_ms = cuda_ms(torch, lambda: torch.sparse.mm(W_dev, QrT), 10)
 
+    def modes(call, want, d, bins, chans, values, classes, bounds):
+        """The kernel mode the wrapper picks for ``call`` and, run in the
+        other mode (same bits), that mode's wrapper and device ms."""
+        fold = h_ops.launch_plan(d, bins, chans, values, classes, 1,
+                                 len(work_items(bounds)[0]),
+                                 *h_ops._device_limits(dev.index))[0]
+        keep = h_ops._FOLD_UNITS_PER_SM
+        h_ops._FOLD_UNITS_PER_SM = 1 << 30 if fold else 0
+        try:
+            check(torch.equal(call(), want),
+                  "the two kernel modes give different bits")
+            ms = cuda_ms(torch, call, 10)
+            _, t, c = device_kernels(torch, lambda: [call()
+                                                     for _ in range(20)])
+            return ("fold" if fold else "rank"), ms, hist_call_ms(t, c)
+        finally:
+            h_ops._FOLD_UNITS_PER_SM = keep
+
     # K3 at the acceptance forest's level-1 shape: every tree's root over
     # its in-bag rows (bootstrap counts as weights), through the whole code
-    # matrix by row id, as the trainer calls it
+    # matrix by row id, as the trainer calls it: with the node bounds and
+    # the row ids' range from the host (``bounds=``), and, for comparison,
+    # with device node ids (``node=``, the wrapper finds the bounds)
     inbag = forest.inbag_
-    codes = torch.as_tensor(forest.binner_.transform(Xtr), device=dev)
+    codes_np = forest.binner_.transform(Xtr)
+    codes = torch.as_tensor(codes_np, device=dev)
     n_bins = forest.binner_.n_bins
     rows_np = [np.flatnonzero(inbag[t]) for t in range(N_TREES)]
-    k3_rows = torch.as_tensor(np.concatenate(rows_np), dtype=torch.int32,
-                              device=dev)
+    rows_cat = np.concatenate(rows_np)
+    k3_rows = torch.as_tensor(rows_cat, dtype=torch.int32, device=dev)
     k3_node = torch.as_tensor(np.repeat(np.arange(N_TREES), [
         len(r) for r in rows_np]), dtype=torch.int32, device=dev)
     k3_y = torch.as_tensor(ytr, dtype=torch.int32, device=dev)[
         k3_rows.long()]
-    k3_w = torch.as_tensor(np.concatenate(
-        [inbag[t, r] for t, r in enumerate(rows_np)]), dtype=torch.float32,
-        device=dev)
+    w_cat = np.concatenate([inbag[t, r] for t, r in enumerate(rows_np)])
+    k3_w = torch.as_tensor(w_cat, dtype=torch.float32, device=dev)
+    k3_bounds = np.concatenate([[0], np.cumsum([len(r) for r in rows_np])])
+    k3_kw = dict(rows=k3_rows, bounds=k3_bounds,
+                 row_range=(int(rows_cat.min()), int(rows_cat.max())))
     k3_args = (k3_node, k3_y, k3_w, N_TREES, n_bins, N_CLASSES)
-    k3_out = histogram(codes, *k3_args, rows=k3_rows)
+
+    def k3_call():
+        return histogram(codes, None, k3_y, k3_w, N_TREES, n_bins,
+                         N_CLASSES, **k3_kw)
+    k3_out = k3_call()
 
     def k3_plain():
         return histogram_ref(codes[k3_rows.long()], *k3_args)
     k3_err = max_err(k3_out, k3_plain())
     check(k3_err == 0.0, "histogram != plain version on integer weights")
-    check(torch.equal(histogram(codes, *k3_args, rows=k3_rows), k3_out),
+    check(torch.equal(k3_call(), k3_out),
           "histogram differs between two launches")
-    k3_ms = cuda_ms(torch, lambda: histogram(codes, *k3_args, rows=k3_rows),
-                    10)
+    check(torch.equal(histogram(codes, *k3_args, rows=k3_rows), k3_out),
+          "histogram with node ids differs from the bounds call")
+    # the ordered oracle's bits, on integer and on continuous weights
+    k3_items, k3_red, _ = work_items(k3_bounds)
+    k3_codes = codes_np[rows_cat]
+    check(same_bits(k3_out, histogram_ordered(
+        k3_codes, ytr[rows_cat], w_cat, k3_items, k3_red, N_TREES, n_bins,
+        N_CLASSES)), "histogram != ordered oracle on integer weights")
+    w_cont = (w_cat * np.random.default_rng(5).uniform(
+        0.5, 1.5, len(w_cat))).astype(np.float32)
+    k3_cont = histogram(codes, None, k3_y, torch.as_tensor(w_cont,
+                                                           device=dev),
+                        N_TREES, n_bins, N_CLASSES, **k3_kw)
+    check(same_bits(k3_cont, histogram_ordered(
+        k3_codes, ytr[rows_cat], w_cont, k3_items, k3_red, N_TREES, n_bins,
+        N_CLASSES)), "histogram != ordered oracle on continuous weights")
+    del k3_codes, k3_cont
+    k3_ms = cuda_ms(torch, k3_call, 10)
+    k3_node_ms = cuda_ms(torch, lambda: histogram(codes, *k3_args,
+                                                  rows=k3_rows), 10)
     k3_plain_ms = cuda_ms(torch, k3_plain, 3)
-    _, kt = device_kernels(torch, lambda: [histogram(
-        codes, *k3_args, rows=k3_rows) for _ in range(5)])
-    k3_dev_ms = hist_kernel_ms(kt) / 5
+    _, kt, kc = device_kernels(torch, lambda: [k3_call() for _ in range(20)])
+    k3_dev_ms = hist_call_ms(kt, kc)
+    k3_ops = ops_per_call(kc)
+    k3_mode, k3_alt_ms, k3_alt_dev = modes(k3_call, k3_out, D, n_bins,
+                                           N_CLASSES, 1, True, k3_bounds)
     m3 = len(k3_rows)
     k3_flat = ((((k3_node.long()[:, None] * D + torch.arange(D, device=dev))
                  * n_bins + codes[k3_rows.long()].long()) * N_CLASSES
@@ -522,10 +610,14 @@ def main() -> int:
     # trainer's (w, w·y, w·y²) payload; integer targets first (exact), then
     # the continuous residuals of the first stage
     gforest = gk.forest
-    g_codes = torch.as_tensor(gforest.binner_.transform(Xg_tr), device=dev)
+    g_codes_np = gforest.binner_.transform(Xg_tr)
+    g_codes = torch.as_tensor(g_codes_np, device=dev)
     g_bins = gforest.binner_.n_bins
     k4_rows = torch.arange(N_GBT, dtype=torch.int32, device=dev)
     k4_node = torch.zeros(N_GBT, dtype=torch.int32, device=dev)
+    k4_bounds = np.array([0, N_GBT])
+    k4_kw = dict(rows=k4_rows, bounds=k4_bounds, row_range=(0, N_GBT - 1))
+    k4_items, k4_red, _ = work_items(k4_bounds)
 
     def payload(v):
         v = torch.as_tensor(v, device=dev)
@@ -533,13 +625,24 @@ def main() -> int:
     wm_int = payload(np.floor(yg_tr))
     wm_res = payload(yg_tr - yg_tr.mean())
     k4_args = (k4_node, wm_res, 1, g_bins)
-    k4_int = moments(g_codes, k4_node, wm_int, 1, g_bins, rows=k4_rows)
+
+    def k4_call():
+        return moments(g_codes, None, wm_res, 1, g_bins, **k4_kw)
+    k4_int = moments(g_codes, None, wm_int, 1, g_bins, **k4_kw)
     k4_int_err = max_err(k4_int, moments_ref(g_codes, k4_node, wm_int, 1,
                                              g_bins, 3))
     check(k4_int_err == 0.0, "moments != plain version on integer payloads")
-    k4_out = moments(g_codes, *k4_args, rows=k4_rows)
-    check(torch.equal(moments(g_codes, *k4_args, rows=k4_rows), k4_out),
+    check(same_bits(k4_int, moments_ordered(
+        g_codes_np, wm_int.cpu().numpy(), k4_items, k4_red, 1, g_bins)),
+        "moments != ordered oracle on integer payloads")
+    k4_out = k4_call()
+    check(torch.equal(k4_call(), k4_out),
           "moments differs between two launches on continuous payloads")
+    check(torch.equal(moments(g_codes, *k4_args, rows=k4_rows), k4_out),
+          "moments with node ids differs from the bounds call")
+    check(same_bits(k4_out, moments_ordered(
+        g_codes_np, wm_res.cpu().numpy(), k4_items, k4_red, 1, g_bins)),
+        "moments != ordered oracle on continuous payloads")
     # float32 sums of a bin's c terms are within c·2⁻²⁴·Σ|terms| of the
     # exact (float64) sum
     flat = (torch.arange(D, device=dev) * g_bins + g_codes.long()).reshape(-1)
@@ -555,11 +658,14 @@ def main() -> int:
           "moments on continuous payloads outside float32 rounding")
     k4_plain_out = moments_ref(g_codes, k4_node, wm_res, 1, g_bins, 3)
     k4_err = max(k4_int_err, max_err(k4_out, k4_plain_out))
-    k4_ms = cuda_ms(torch, lambda: moments(g_codes, *k4_args, rows=k4_rows),
-                    20)
-    _, kt = device_kernels(torch, lambda: [moments(
-        g_codes, *k4_args, rows=k4_rows) for _ in range(5)])
-    k4_dev_ms = hist_kernel_ms(kt) / 5
+    k4_ms = cuda_ms(torch, k4_call, 20)
+    k4_node_ms = cuda_ms(torch, lambda: moments(g_codes, *k4_args,
+                                                rows=k4_rows), 20)
+    _, kt, kc = device_kernels(torch, lambda: [k4_call() for _ in range(20)])
+    k4_dev_ms = hist_call_ms(kt, kc)
+    k4_ops = ops_per_call(kc)
+    k4_mode, k4_alt_ms, k4_alt_dev = modes(k4_call, k4_out, D, g_bins, 3, 3,
+                                           False, k4_bounds)
     k4_plain_ms = cuda_ms(torch, lambda: moments_ref(
         g_codes[k4_rows.long()], k4_node, wm_res, 1, g_bins, 3), 5)
     k4_table = torch.zeros((D * g_bins, 3), dtype=torch.float32, device=dev)
@@ -567,9 +673,11 @@ def main() -> int:
         .contiguous()
     k4_lib_ms = cuda_ms(torch, lambda: k4_table.index_add_(0, flat, wm_exp),
                         20)
-    print(f"K3/K4 bit-exact on integer payloads; K4 continuous: max |kernel "
-          f"- float64| {float(k4_dev.max()):.3e}, vs plain "
-          f"{max_err(k4_out, k4_plain_out):.3e}, same bits twice", flush=True)
+    print(f"K3/K4 bit-exact on integer payloads; K3/K4 equal the ordered "
+          f"oracle bit for bit on integer and continuous payloads; K4 "
+          f"continuous: max |kernel - float64| {float(k4_dev.max()):.3e}, "
+          f"vs plain {max_err(k4_out, k4_plain_out):.3e}, same bits twice",
+          flush=True)
 
     # ---- bounds, from this run's shapes and data ----
     # K1 reads X once, each real node once (feature, threshold, two
@@ -642,15 +750,23 @@ def main() -> int:
           f"{k2_terms[k2_by] * 1e3:.4f} ms by {k2_by} "
           f"(collisions {collisions:.3e})")
     print(f"K3 level 1 {N_TREES} nodes x {m3} instances x {D} x {n_bins} x "
-          f"{N_CLASSES}: {k3_ms:.3f} ms a wrapper call ({k3_dev_ms:.3f} ms "
-          f"in its kernels on the device), plain {k3_plain_ms:.3f} ms, "
-          f"index_add_ {k3_lib_ms:.3f} ms, bound "
-          f"{k3_terms[k3_by] * 1e3:.4f} ms by {k3_by}")
+          f"{N_CLASSES}: {k3_ms:.3f} ms a wrapper call with host bounds "
+          f"({k3_dev_ms:.3f} ms in its kernels on the device, host share "
+          f"{k3_ms - k3_dev_ms:.3f} ms; {k3_node_ms:.3f} ms a call with "
+          f"node ids), plain {k3_plain_ms:.3f} ms, index_add_ "
+          f"{k3_lib_ms:.3f} ms, bound {k3_terms[k3_by] * 1e3:.4f} ms by "
+          f"{k3_by}; device ops of one call {k3_ops}; {k3_mode} mode "
+          f"(the other mode here: {k3_alt_ms:.3f} ms a call, "
+          f"{k3_alt_dev:.3f} ms on the device, same bits)")
     print(f"K4 GBT root 1 node x {N_GBT} x {D} x {g_bins} x 3: {k4_ms:.3f} "
-          f"ms a wrapper call ({k4_dev_ms:.3f} ms in its kernels on the "
-          f"device), plain {k4_plain_ms:.3f} ms, index_add_ "
-          f"{k4_lib_ms:.3f} ms, "
-          f"bound {k4_terms[k4_by] * 1e3:.4f} ms by {k4_by}")
+          f"ms a wrapper call with host bounds ({k4_dev_ms:.3f} ms in its "
+          f"kernels on the device, host share {k4_ms - k4_dev_ms:.3f} ms; "
+          f"{k4_node_ms:.3f} ms a call with node ids), plain "
+          f"{k4_plain_ms:.3f} ms, index_add_ {k4_lib_ms:.3f} ms, bound "
+          f"{k4_terms[k4_by] * 1e3:.4f} ms by {k4_by}; device ops of one "
+          f"call {k4_ops}; {k4_mode} mode (the other mode here: "
+          f"{k4_alt_ms:.3f} ms a call, {k4_alt_dev:.3f} ms on the device, "
+          f"same bits)")
     print("launches (main path + GBT path): " + ", ".join(
         f"{k} {launches[k]} + {gbt_launches[k]}" for k in wrappers))
     print(f"wall: {time.perf_counter() - t0:.1f} s")

@@ -124,7 +124,7 @@ class BaseForest:
                 sel = np.nonzero(w)[0]
                 return fit_tree_binned(Xb[sel], y[sel],
                                        w[sel].astype(np.float64), params,
-                                       child_rngs[t], self.binner_)
+                                       child_rngs[t], self.binner_, dev)
 
             jobs = _resolve_jobs(self.n_jobs, self.n_trees)
             if jobs == 1:

@@ -82,18 +82,17 @@ class TreeParams:
         return max(1, min(int(mf), d))
 
 
-def resolve_tree_backend(backend: Optional[str], device=None) -> str:
+def resolve_tree_backend(backend: Optional[str], device="cuda") -> str:
     """Resolve 'auto' | 'numpy' | 'torch' to a concrete trainer backend.
 
-    'auto' is 'torch' when ``device`` is a CUDA device and 'numpy' when it
-    is the CPU or None (the host trainer).  'torch' on a CUDA device runs
-    the histogram kernels and never their plain versions.  The reference's
-    'native' and 'jax' have no counterpart here and raise.
+    'auto' is 'torch' when ``device`` (the card by default; a missing card
+    raises) is a CUDA device and 'numpy' (the host trainer) when it is the
+    CPU.  'torch' on a CUDA device runs the histogram kernels and never
+    their plain versions.  The reference's 'native' and 'jax' have no
+    counterpart here and raise.
     """
     if backend in (None, "auto"):
-        if device is not None and resolve_device(device).type == "cuda":
-            return "torch"
-        return "numpy"
+        return "torch" if resolve_device(device).type == "cuda" else "numpy"
     if backend in ("numpy", "torch"):
         return backend
     raise ValueError(f"unknown tree backend {backend!r}; have "
@@ -201,12 +200,13 @@ def _node_values(y: np.ndarray, w: np.ndarray, params: TreeParams) -> np.ndarray
 
 def fit_tree_binned(Xb: np.ndarray, y: np.ndarray, w: np.ndarray,
                     params: TreeParams, rng: np.random.Generator,
-                    binner: Binner, device=None) -> Tree:
+                    binner: Binner, device="cuda") -> Tree:
     """Grow one tree level-wise on pre-binned features.
 
     ``w`` are per-sample weights (bootstrap multiplicities); samples with
     ``w == 0`` must be excluded by the caller (they are OOB).  The backend
-    is ``params.tree_backend`` resolved against ``device``.
+    is ``params.tree_backend`` resolved against ``device`` (the card unless
+    the caller asks for the CPU).
     """
     backend = resolve_tree_backend(params.tree_backend, device)
     rows = np.arange(Xb.shape[0], dtype=np.int64)
@@ -218,15 +218,15 @@ def fit_tree_binned(Xb: np.ndarray, y: np.ndarray, w: np.ndarray,
 def fit_forest_binned(Xb: np.ndarray, y: np.ndarray, inbag: np.ndarray,
                       params: TreeParams, rngs: Sequence[np.random.Generator],
                       binner: Binner, backend: Optional[str] = None,
-                      tree_block: int = 0, device=None) -> List[Tree]:
+                      tree_block: int = 0, device="cuda") -> List[Tree]:
     """Grow a whole forest as level-synchronous batches of trees.
 
     Each level issues one histogram/score/partition pass spanning every
     tree's frontier.  ``backend`` (default ``params.tree_backend``) is
-    resolved against ``device``.  ``tree_block`` caps how many trees share
-    a batch: 0 auto-sizes the cap so resident frontier state (~48 bytes per
-    in-bag instance) stays under ``_BATCH_BUDGET``; negative means all
-    trees in one batch.  Trees are bit-identical to growing each alone with
+    resolved against ``device`` (the card unless the caller asks for the
+    CPU).  ``tree_block`` caps how many trees share a batch: 0 auto-sizes
+    the cap so resident frontier state (~48 bytes per in-bag instance)
+    stays under ``_BATCH_BUDGET``; negative means all trees in one batch.  Trees are bit-identical to growing each alone with
     its own RNG stream, on either backend.
     """
     backend = resolve_tree_backend(
@@ -252,7 +252,8 @@ def fit_forest_binned(Xb: np.ndarray, y: np.ndarray, inbag: np.ndarray,
     return trees
 
 
-def device_codes(Xb: np.ndarray, binner: Binner, device) -> torch.Tensor:
+def device_codes(Xb: np.ndarray, binner: Binner, device="cuda"
+                 ) -> torch.Tensor:
     """The code matrix on the device, once per fit, as ``uint8`` (``int16``
     past 256 bins) codes checked against ``binner.n_bins``."""
     Xb = np.asarray(Xb)
@@ -260,8 +261,8 @@ def device_codes(Xb: np.ndarray, binner: Binner, device) -> torch.Tensor:
         Xb = Xb.astype(binner.code_dtype)
     if Xb.size and (int(Xb.max()) >= binner.n_bins or int(Xb.min()) < 0):
         raise ValueError(f"bin codes outside [0, {binner.n_bins})")
-    dev = resolve_device("cuda" if device is None else device)
-    return torch.as_tensor(np.ascontiguousarray(Xb), device=dev)
+    return torch.as_tensor(np.ascontiguousarray(Xb),
+                           device=resolve_device(device))
 
 
 # --------------------------------------------------------------------------
@@ -603,7 +604,7 @@ def _partition_numpy(Xb: np.ndarray, rows: np.ndarray, w: np.ndarray,
 
 def _grow_trees(Xb: np.ndarray, y: np.ndarray, tasks: Sequence[tuple],
                 params: TreeParams, binner: Binner, backend: str = "numpy",
-                device=None, codes: Optional[torch.Tensor] = None
+                device="cuda", codes: Optional[torch.Tensor] = None
                 ) -> List[Tree]:
     """Grow a batch of trees level-synchronously.
 
@@ -644,19 +645,26 @@ def _grow_trees(Xb: np.ndarray, y: np.ndarray, tasks: Sequence[tuple],
         def as_dev(a: np.ndarray) -> torch.Tensor:
             return torch.as_tensor(a, device=dev)
 
+        # every frontier's row ids are some of the tasks' rows, so their
+        # host range covers every histogram call of these trees
+        spans = [(int(t[0].min()), int(t[0].max())) for t in tasks
+                 if len(t[0])]
+        row_range = (min(s[0] for s in spans), max(s[1] for s in spans)) \
+            if spans else (0, 0)
+
         def torch_hist(r: torch.Tensor, wv: torch.Tensor,
-                       counts: np.ndarray, nn: int) -> torch.Tensor:
+                       bounds: np.ndarray, nn: int) -> torch.Tensor:
             """Device histograms of ``nn`` nodes whose samples (code rows
-            ``r``, weights ``wv``) lie in node order, ``counts`` a node."""
-            node = torch.repeat_interleave(
-                torch.arange(nn, dtype=torch.int32, device=dev),
-                as_dev(counts), output_size=len(r))
+            ``r``, weights ``wv``) lie in node order, node i's at
+            ``bounds[i] .. bounds[i + 1]`` (host offsets: the wrapper then
+            needs nothing back from the device)."""
+            kw = dict(rows=r, bounds=bounds, row_range=row_range)
             if cls:
-                return hops.histogram(codes, node, y_dev[r], wv.float(), nn,
-                                      B, C, rows=r)
+                return hops.histogram(codes, None, y_dev[r], wv.float(), nn,
+                                      B, C, **kw)
             yv = y_dev[r]
             wm = torch.stack([wv, wv * yv, wv * (yv * yv)], dim=1).float()
-            return hops.moments(codes, node, wm, nn, B, rows=r)
+            return hops.moments(codes, None, wm, nn, B, **kw)
 
     stores: List[_TreeStore] = []
     acts: List[np.ndarray] = []      # per-tree active node ids (store ids)
@@ -787,8 +795,8 @@ def _grow_trees(Xb: np.ndarray, y: np.ndarray, tasks: Sequence[tuple],
 
             if all_direct:
                 if use_torch:
-                    hist = torch_hist(rows_dev[s0:s1], w_dev[s0:s1],
-                                      np.diff(bch), gcc)
+                    hist = torch_hist(rows_dev[s0:s1], w_dev[s0:s1], bch,
+                                      gcc)
                 else:
                     hist = _hist_numpy(Xb, rows_g[s0:s1], w_g[s0:s1],
                                        y_g[s0:s1], bch, d, B, C, cls)
@@ -803,7 +811,7 @@ def _grow_trees(Xb: np.ndarray, y: np.ndarray, tasks: Sequence[tuple],
                 if use_torch:
                     sel_dev = as_dev(sel)
                     h_dir = torch_hist(rows_dev[sel_dev], w_dev[sel_dev],
-                                       d_lens, len(dn))
+                                       bnd_d, len(dn))
                     hist = torch.empty((gcc, d, B, C), dtype=torch.float32,
                                        device=dev)
                     hist[as_dev(dn)] = h_dir

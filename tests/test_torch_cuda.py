@@ -281,6 +281,139 @@ def test_histogram_kernel_empty_and_zero_weights(dev):
         histogram(xb, node, y, w, 9, 16, 3, rows=rows + xb.shape[0])
 
 
+def _ordered_case(xb, node, rows, n_nodes):
+    """The order in which the wrapper hands the samples to the kernel
+    (stably sorted by node), their codes there and their node bounds."""
+    node_h = node.cpu().numpy()
+    order = np.argsort(node_h, kind="stable")
+    bounds = np.searchsorted(node_h[order], np.arange(n_nodes + 1))
+    return order, xb.cpu().numpy()[rows.cpu().numpy()[order]], bounds
+
+
+def _bits(a):
+    a = a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+    return np.ascontiguousarray(a, np.float32).view(np.uint32)
+
+
+ORACLE_SHAPES = [(1000, 3, 5, 16, 3), (5000, 65, 20, 64, 7),
+                 (30_000, 3, 20, 64, 7), (300_000, 1, 4, 16, 2),
+                 (3000, 300, 7, 300, 2), (6000, 5, 40, 256, 7),
+                 (3000, 3, 3, 300, 200), (60_000, 500, 20, 64, 7),
+                 (20_000, 700, 6, 16, 3)]
+
+
+def _force_mode(monkeypatch, mode):
+    """Make every launch take the fold mode (where the histogram fits
+    shared memory) or the rank mode."""
+    from repro_torch.kernels.histogram import ops
+    monkeypatch.setattr(ops, "_FOLD_UNITS_PER_SM",
+                        0 if mode == "fold" else 1 << 30)
+
+
+@pytest.mark.parametrize("n,n_nodes,d,n_bins,C", ORACLE_SHAPES)
+@pytest.mark.parametrize("sort", [True, False])
+@pytest.mark.parametrize("mode", ["fold", "rank"])
+def test_kernels_equal_ordered_oracle_on_continuous_payloads(
+        dev, monkeypatch, n, n_nodes, d, n_bins, C, sort, mode):
+    """K3 and K4 give the ordered oracle's bits on continuous payloads
+    (sums in sample order within a segment, then segment by segment), the
+    same bits on two launches, in both kernel modes; int32 and int64 row
+    ids alike.  The shapes cover cut nodes, empty nodes, unaligned rows
+    (D = 5, 7, 3, 6), int16 codes, sliced features (D = 40), global-memory
+    accumulation and launches of many units."""
+    from repro_torch.kernels.histogram.ops import (histogram, moments,
+                                                   work_items)
+    from repro_torch.kernels.histogram.ref import (histogram_ordered,
+                                                   moments_ordered)
+    _force_mode(monkeypatch, mode)
+    rng = np.random.default_rng(n + d + C)
+    xb, node, y, w, rows = _hist_inputs(rng, n, n_nodes, d, n_bins, C, dev,
+                                        sort=sort, integer=False,
+                                        n_rows=n + 17)
+    w = w * 37.0
+    order, codes, bounds = _ordered_case(xb, node, rows, n_nodes)
+    items, red, _ = work_items(bounds)
+    o = torch.as_tensor(order, device=dev)
+    want = histogram_ordered(codes, y[o].cpu().numpy(), w[o].cpu().numpy(),
+                             items, red, n_nodes, n_bins, C)
+    for r in (rows, rows.int()):
+        got = histogram(xb, node, y, w, n_nodes, n_bins, C, rows=r)
+        again = histogram(xb, node, y, w, n_nodes, n_bins, C, rows=r)
+        assert np.array_equal(_bits(got), _bits(want))
+        assert np.array_equal(_bits(again), _bits(got))
+    wm = torch.as_tensor(rng.normal(size=(n, 3)) * 5, dtype=torch.float32,
+                         device=dev)
+    want_m = moments_ordered(codes, wm[o].cpu().numpy(), items, red,
+                             n_nodes, n_bins)
+    got_m = moments(xb, node, wm, n_nodes, n_bins, rows=rows)
+    assert np.array_equal(_bits(got_m), _bits(want_m))
+
+
+def test_library_plan_equals_work_items(dev):
+    """The wrapper takes its work plan from the library's host copy of
+    ``work_items``: the two agree item for item on every layout."""
+    import ctypes
+    from repro_torch.kernels.histogram.ops import _lib, work_items
+    lib = _lib()
+    rng = np.random.default_rng(11)
+    layouts = [[0], [5, 0, 256, 257, 0], [100_000, 3], [1] * 70 + [10_000],
+               [50_000], [31_600] * 100, [10_000_000, 5], [3] * 20_000]
+    layouts += [list(rng.integers(0, rng.choice([10, 300, 5000, 200_000]),
+                                  rng.integers(1, 400))) for _ in range(200)]
+    for counts in layouts:
+        bounds = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+        items, red, n_partial = work_items(bounds)
+        size = lib.histogram_plan(bounds.ctypes.data, len(counts), None)
+        assert (size >> 32, size & 0xFFFFFFFF) == (len(items), len(red))
+        got = np.zeros((len(items) + len(red), 3), np.int64)
+        lib.histogram_plan(bounds.ctypes.data, len(counts),
+                           got.ctypes.data_as(ctypes.c_void_p))
+        np.testing.assert_array_equal(got[:len(items)], items)
+        np.testing.assert_array_equal(got[len(items):], red)
+        assert n_partial == len(items) - len(counts) + len(red)
+
+
+@pytest.mark.parametrize("mode", ["fold", "rank"])
+def test_bounds_call_does_not_synchronise(dev, monkeypatch, mode):
+    """With host bounds and the row ids' host range, a wrapper call issues
+    device work only: under ``set_sync_debug_mode("error")`` any hidden
+    synchronisation would raise.  Its result equals the node-id path's bit
+    for bit, in shared memory, in sliced features and in global memory."""
+    from repro_torch.kernels.histogram.ops import histogram, moments
+    _force_mode(monkeypatch, mode)
+    for n, n_nodes, d, n_bins, C in [(50_000, 100, 20, 64, 7),
+                                     (6000, 5, 40, 256, 7),
+                                     (3000, 3, 3, 300, 200)]:
+        rng = np.random.default_rng(n_nodes)
+        xb, node, y, w, rows = _hist_inputs(rng, n, n_nodes, d, n_bins, C,
+                                            dev, integer=False,
+                                            n_rows=n + 5)
+        node_h = node.cpu().numpy()
+        bounds = np.searchsorted(node_h, np.arange(n_nodes + 1))
+        span = (int(rows.min()), int(rows.max()))
+        wm = torch.stack([w, w * 2, w * w], 1)
+        want = histogram(xb, node, y, w, n_nodes, n_bins, C, rows=rows)
+        want_m = moments(xb, node, wm, n_nodes, n_bins, rows=rows)
+        n0 = histogram.launches + moments.launches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = histogram(xb, None, y, w, n_nodes, n_bins, C, rows=rows,
+                            bounds=bounds, row_range=span)
+            got_m = moments(xb, None, wm, n_nodes, n_bins, rows=rows,
+                            bounds=bounds, row_range=span)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert histogram.launches + moments.launches == n0 + 2
+        assert torch.equal(got, want) and torch.equal(got_m, want_m)
+        with pytest.raises(IndexError):
+            histogram(xb, None, y, w, n_nodes, n_bins, C, rows=rows,
+                      bounds=bounds, row_range=(0, xb.shape[0]))
+        with pytest.raises(ValueError, match="bounds"):
+            histogram(xb, None, y, w, n_nodes, n_bins, C, rows=rows,
+                      bounds=bounds[:-1])
+
+
 @pytest.mark.parametrize("model,task", [("RandomForest", "classification"),
                                         ("ExtraTrees", "classification"),
                                         ("RandomForest", "regression"),

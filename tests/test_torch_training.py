@@ -85,14 +85,15 @@ def test_batched_forest_equals_per_tree_growth():
     params = TreeParams(n_classes=3, n_bins=32)
     batched = fit_forest_binned(Xb, y, inbag, params,
                                 np.random.default_rng(9).spawn(4), binner,
-                                tree_block=-1)
+                                tree_block=-1, device="cpu")
     rngs = np.random.default_rng(9).spawn(4)
     single = []
     for t in range(4):
         sel = np.nonzero(inbag[t])[0]
         single.append(fit_tree_binned(Xb[sel], y[sel],
                                       inbag[t, sel].astype(np.float64),
-                                      params, rngs[t], binner))
+                                      params, rngs[t], binner,
+                                      device="cpu"))
     _assert_same_trees(single, batched)
 
 
@@ -179,11 +180,11 @@ def test_torch_subtraction_halves_work_and_keeps_trees(task, monkeypatch):
 
     class Spy:
         def histogram(self, xb, node, *a, **k):
-            seen.append(len(node))
+            seen.append(len(a[0]))                 # samples: y's length
             return real.histogram(xb, node, *a, **k)
 
         def moments(self, xb, node, *a, **k):
-            seen.append(len(node))
+            seen.append(len(a[0]))                 # samples: wm's rows
             return real.moments(xb, node, *a, **k)
 
     monkeypatch.setattr(training, "hops", Spy())
@@ -283,7 +284,7 @@ def test_gbt_torch_backend_agrees_with_reference():
 
 def test_resolve_tree_backend():
     assert resolve_tree_backend("auto", "cpu") == "numpy"
-    assert resolve_tree_backend(None, None) == "numpy"
+    assert resolve_tree_backend(None, "cpu") == "numpy"
     assert resolve_tree_backend("torch", "cpu") == "torch"
     assert resolve_tree_backend("numpy", "cpu") == "numpy"
     for bad in ("native", "jax", "pallas"):
@@ -293,3 +294,62 @@ def test_resolve_tree_backend():
     with pytest.raises(ValueError, match="tree backend"):
         ensemble.RandomForest(n_trees=2, device="cpu",
                               tree_backend="native").fit(X, y)
+
+
+def test_binned_entry_points_default_to_the_card(monkeypatch):
+    """fit_forest_binned / fit_tree_binned with no device ask for the card
+    and raise when there is none; they never train on the host unasked."""
+    X, y = gaussian_classes(200, d=4, n_classes=2, seed=0)
+    binner = Binner(X, 16)
+    Xb = binner.transform(X)
+    inbag = np.ones((2, len(X)), np.int64)
+    params = TreeParams(n_classes=2, n_bins=16)
+    asked = []
+    real = training.resolve_device
+
+    def spy(device="cuda"):
+        asked.append(str(device))
+        return real(device)
+
+    monkeypatch.setattr(training, "resolve_device", spy)
+    monkeypatch.setattr(training.torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fit_forest_binned(Xb, y, inbag, params,
+                          np.random.default_rng(0).spawn(2), binner)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fit_tree_binned(Xb, y, np.ones(len(X)), params,
+                        np.random.default_rng(0), binner)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_tree_backend("auto")
+    assert asked == ["cuda"] * 3
+    # asked for the host, they grow on it
+    trees = fit_forest_binned(Xb, y, inbag, params,
+                              np.random.default_rng(0).spawn(2), binner,
+                              device="cpu")
+    assert len(trees) == 2 and asked[-1] == "cpu"
+
+
+def test_auto_backend_on_the_cpu_grows_on_the_host_trainer(monkeypatch):
+    """RandomForest(device='cpu', tree_backend='auto') runs the numpy
+    trainer (no histogram wrapper is called) and grows the reference's
+    trees."""
+    X, y = gaussian_classes(500, d=6, n_classes=3, seed=4)
+    calls = []
+    real = training.hops
+
+    class Spy:
+        def histogram(self, *a, **k):
+            calls.append("histogram")
+            return real.histogram(*a, **k)
+
+        def moments(self, *a, **k):
+            calls.append("moments")
+            return real.moments(*a, **k)
+
+    monkeypatch.setattr(training, "hops", Spy())
+    port = ensemble.RandomForest(n_trees=3, seed=2, device="cpu",
+                                 tree_backend="auto").fit(X, y)
+    assert calls == []
+    ref = ref_ensemble.RandomForest(n_trees=3, seed=2, tree_backend="numpy",
+                                    routing_backend="numpy").fit(X, y)
+    _assert_same_trees(ref.trees_, port.trees_)
