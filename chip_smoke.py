@@ -18,9 +18,18 @@
    50,000 x 20 (+5,000 OOS) — counted, and holds it against a host GBT fit
    (predictions within 0.05 y.std), host scipy (ops at 1e-8) and a second
    card fit (bit-identical trees);
-5. holds each kernel against its plain PyTorch version on the card: routing
-   bit-exact on the acceptance forest and on a deep forest whose node
-   tables exceed a block's shared memory, the proximity block within 1e-10,
+5. times each serving op again after its first call (warm: median of
+   ``WARM_REPS`` calls; the OOS batches then hit the engine's query-state
+   cache) beside its cold time;
+6. holds each kernel against its plain PyTorch version on the card: routing
+   bit-exact on the acceptance forest (also with NaN features), on a deep
+   random-label forest (leaves of about 3 samples) and on a GBT stage's
+   depth-6 tree, timed at 50,000 x 100 trees, 5,000 x 100 and 50,000 x 1
+   tree; the proximity block within 1e-10 of its plain version at 512 and
+   671 rows x 50,000 x 100 (the train-side row blocks are 671 rows), on
+   the deep forest and on the GBT forest, in both forms (leaf collisions
+   on the engine's leaf index, dense) with the same bits, each form timed,
+   and its share of the warm train-side steps;
    K3 at the acceptance level-1 shape and K4 at the GBT root shape
    bit-exact on integer payloads, both bit for bit equal to the ordered
    oracle (``histogram_ordered``/``moments_ordered``) on integer and
@@ -29,14 +38,14 @@
    the trainer calls them (host node bounds) and with device node ids,
    with their device time, the device ops of one call, and the kernel mode
    the wrapper did not pick (same bits) timed beside the one it picked;
-6. prints one ``{"kernels": [...]}`` line (launches on the main and GBT
+7. prints one ``{"kernels": [...]}`` line (launches on the main and GBT
    paths, errors, kernel / plain / library times and the least time the
    card could take), the card's name and power limit, and as its last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It exits non-zero at once when torch finds no CUDA device or when the
-port's sources are not beside it.  About 2.5 minutes on one H100, a third
+port's sources are not beside it.  About 3.5 minutes on one H100, a third
 of it the host numpy fits the card fits are held against.
 """
 import json
@@ -54,6 +63,7 @@ SRC = os.path.join(ROOT, "src")
 N_TRAIN, N_OOS, D, N_CLASSES, N_TREES = 50_000, 5_000, 20, 7, 100
 TOPK_ROWS, BLOCK_ROWS, K = 4096, 512, 10
 CHECK_ROWS = 1024        # train rows whose all-pairs results host scipy checks
+WARM_REPS = 5            # calls of each serving op timed after its first
 ATOL_OPS = 1e-8          # the reference's cross-backend engine contract
 ATOL_BLOCK = 1e-10       # K2 against its plain version (sums in other order)
 N_GBT, N_GBT_OOS, GBT_STAGES, GBT_DEPTH = 50_000, 5_000, 100, 6
@@ -134,12 +144,12 @@ def hist_kernel_ms(times):
     return sum(v for k, v in times.items() if "histogram" in k)
 
 
-def hist_call_ms(times, counts):
-    """Device ms a call of the histogram source's kernels, from a profile
-    of several calls: the main kernel's and the reduce pass's time each
-    divided by the number of their launches the profile caught (it may
-    miss some at its start)."""
-    return sum(times[k] / counts[k] for k in times if "histogram" in k)
+def hist_call_ms(times, counts, name="histogram"):
+    """Device ms a call of the kernels whose names hold ``name`` (K3/K4 and
+    the reduce pass by default), from a profile of several calls: each
+    kernel's time divided by the number of its launches the profile caught
+    (it may miss some at its start)."""
+    return sum(times[k] / counts[k] for k in times if name in k)
 
 
 def ops_per_call(counts):
@@ -170,13 +180,15 @@ def main() -> int:
         print(f"chip_smoke: no port sources under {SRC}", file=sys.stderr)
         return 1
     sys.path.insert(0, SRC)
+    from repro_torch.core import engine as eng_mod
     from repro_torch.core.api import ForestKernel
     from repro_torch.core.factorization import kernel_block, topk_neighbors
     from repro_torch.data.synthetic import (friedman1, gaussian_classes,
                                             train_test_split)
     from repro_torch.forest.ensemble import ExtraTrees, RandomForest
+    from repro_torch.forest.trees import TreeArrays
     from repro_torch.kernels import _build
-    from repro_torch.kernels.block_prox.ops import block_prox
+    from repro_torch.kernels.block_prox.ops import block_prox, build_leaf_index
     from repro_torch.kernels.block_prox.ref import block_prox_ref
     from repro_torch.kernels.histogram import ops as h_ops
     from repro_torch.kernels.histogram.ops import (histogram, moments,
@@ -185,7 +197,7 @@ def main() -> int:
                                                    histogram_ref,
                                                    moments_ordered,
                                                    moments_ref)
-    from repro_torch.kernels.leaf_route.ops import route
+    from repro_torch.kernels.leaf_route.ops import route, route_tables
     from repro_torch.kernels.leaf_route.ref import route_ref
     wrappers = {"leaf_route": route, "block_prox": block_prox,
                 "histogram": histogram, "moments": moments}
@@ -274,6 +286,7 @@ def main() -> int:
     for name in ("leaf_route", "block_prox", "histogram"):
         check(launches[name] > 0, f"{name} was not launched on the main path")
     check(launches["moments"] == 0, "a classification fit launched K4")
+    print(f"engine device memory: {fk.engine.memory_bytes()}", flush=True)
     levels = max(t.depth for t in fk.forest.trees_)
     print(f"card fit: {wall['fit_forest']:.3f} s, {levels} levels, "
           f"{per_step['fit_forest']} launches, peak device memory "
@@ -470,43 +483,143 @@ def main() -> int:
           f"OOS proximity-prediction RMSE {gbt_rmse:.4f} "
           f"(y.std {yg_te.std():.4f})", flush=True)
 
-    # ---- phase 5: kernels against their plain versions ----
+    # ---- phase 5: the serving ops warm ----
+    warm_ops = {
+        "predict_oos": lambda: fk.predict(Xte),
+        "topk_oos": lambda: fk.topk(k=K, X=Xq),
+        "kernel_block": lambda: fk.kernel_block(rows),
+        "squared_row_sums_oos": lambda: fk.engine.squared_row_sums(
+            ytr, n_classes=N_CLASSES, X=Xte),
+        "topk_train": lambda: fk.topk(k=K),
+        "squared_row_sums_train": lambda: fk.engine.squared_row_sums(
+            ytr, N_CLASSES),
+    }
+    warm = {}
+    for name, fn in warm_ops.items():
+        times = []
+        for _ in range(WARM_REPS):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        warm[name] = float(np.median(times))
+    print(f"serving ops, s (cold: first call; warm: median of {WARM_REPS} "
+          "later calls): " + ", ".join(
+              f"{k} cold {wall[k]:.4f} warm {v:.4f}" for k, v in warm.items()),
+          flush=True)
+
+    # ---- phase 6: kernels against their plain versions ----
     forest = fk.forest
     tables = forest.route_tables_
     X_dev = torch.as_tensor(Xtr, dtype=torch.float64, device=dev)
-    args = (tables.feature, tables.threshold, tables.lr, tables.leaf_id,
-            tables.n_trees, tables.max_nodes)
-    lv_k = route(X_dev, tables)
-    lv_p = route_ref(X_dev, *args)
-    k1_err = max_err(lv_k, lv_p)
-    check(k1_err == 0.0, "leaf_route != plain version (acceptance)")
-    k1_ms = cuda_ms(torch, lambda: route(X_dev, tables), 20)
-    k1_plain_ms = cuda_ms(torch, lambda: route_ref(X_dev, *args), 3)
+
+    def route_plain(Xr, tb):
+        return route_ref(Xr, *tb.flat(), tb.n_trees, tb.max_nodes)
+
+    def k1_case(name, Xr, tb):
+        """K1 bit-exact against its plain version; its ms a wrapper call
+        and on the device (profiled)."""
+        check(torch.equal(route(Xr, tb), route_plain(Xr, tb)),
+              f"leaf_route != plain version ({name})")
+        _, t, c = device_kernels(torch, lambda: [route(Xr, tb)
+                                                 for _ in range(20)])
+        return (cuda_ms(torch, lambda: route(Xr, tb), 20),
+                hist_call_ms(t, c, "leaf_route"))
+
+    X_nan = X_dev.clone()
+    X_nan[::7, 3] = float("nan")
+    X_nan[1::11, 0] = float("nan")
+    k1_case("acceptance, NaN features", X_nan, tables)
+    Xte_dev = torch.as_tensor(Xte, dtype=torch.float64, device=dev)
+    Xg_dev = torch.as_tensor(Xg_tr, dtype=torch.float64, device=dev)
+    stage = gk.forest.trees_[0]
+    stage_tb = route_tables(TreeArrays.from_trees([stage]), dev)
+    k1_shapes = {  # name: (samples, tables, real nodes)
+        f"{N_TRAIN}x{N_TREES}": (X_dev, tables,
+                                 sum(t.n_nodes for t in forest.trees_)),
+        f"{N_OOS}x{N_TREES}": (Xte_dev, tables,
+                               sum(t.n_nodes for t in forest.trees_)),
+        f"{N_GBT}x1 (GBT stage, depth {stage.depth})": (Xg_dev, stage_tb,
+                                                        stage.n_nodes)}
+    k1_times = {k: k1_case(k, Xr, tb) for k, (Xr, tb, _) in k1_shapes.items()}
+    k1_ms = k1_times[f"{N_TRAIN}x{N_TREES}"][0]
+    k1_plain_ms = cuda_ms(torch, lambda: route_plain(X_dev, tables), 3)
 
     rng = np.random.default_rng(1)
     Xd = rng.normal(size=(20_000, D))
     yd = rng.integers(0, N_CLASSES, size=20_000)
     deep = RandomForest(n_trees=10, seed=1, device="cuda").fit(Xd, yd)
     dt = deep.route_tables_
-    node_bytes = 20 * min(t.n_nodes for t in deep.trees_)
-    check(node_bytes > 232_448,
-          f"deep forest's trees ({node_bytes} B) must exceed shared memory")
     Xd_dev = torch.as_tensor(Xd, dtype=torch.float64, device=dev)
-    k1_err_deep = max_err(route(Xd_dev, dt),
-                          route_ref(Xd_dev, dt.feature, dt.threshold, dt.lr,
-                                    dt.leaf_id, dt.n_trees, dt.max_nodes))
-    check(k1_err_deep == 0.0, "leaf_route != plain version (deep forest)")
-    print(f"K1 bit-exact: acceptance M={tables.max_nodes}, deep "
-          f"M={dt.max_nodes}", flush=True)
+    k1_case("deep forest", Xd_dev, dt)
+    deep_leaf = 20_000 / np.mean([t.n_leaves for t in deep.trees_])
+    print(f"K1 bit-exact on the acceptance forest (M={tables.max_nodes}; "
+          f"also with NaN features), the deep forest (M={dt.max_nodes}, "
+          f"{deep_leaf:.2f} samples a leaf) and a GBT stage", flush=True)
 
+    # K2 in both forms on one engine's factors: the leaf-collision form on
+    # its leaf index and the dense form, at the timed 512-row block and at
+    # the 671-row train-side block; same bits, within ATOL_BLOCK of plain
+    index = eng.leaf_index()
+    idx_ms = cuda_ms(torch, lambda: build_leaf_index(
+        eng.gl, eng.w, n_leaves=eng.total_leaves), 3)
+    train_rows = max(1, eng_mod._BLOCK_BYTES // (8 * eng.n_ref))
+
+    def k2_case(name, e, nrows):
+        """Both forms of K2 on engine ``e``'s first ``nrows`` rows: the
+        leaf form within ATOL_BLOCK of the plain version and the same bits
+        on a second launch and in the dense form.  Returns (output, error,
+        leaf ms, dense ms)."""
+        gq, qq = e.gl[:nrows], e.q[:nrows]
+        ix = e.leaf_index()
+        got = block_prox(gq, qq, e.gl, e.w, index=ix)
+        err = max_err(got, block_prox_ref(gq, qq, e.gl, e.w))
+        check(err <= ATOL_BLOCK, f"block_prox ({name}) error {err} > "
+              f"{ATOL_BLOCK}")
+        check(torch.equal(block_prox(gq, qq, e.gl, e.w, index=ix), got),
+              f"block_prox ({name}) differs between two launches")
+        check(torch.equal(block_prox(gq, qq, e.gl, e.w).view(torch.int64),
+                          got.view(torch.int64)),
+              f"block_prox ({name}): leaf and dense forms differ")
+        return (got, err,
+                cuda_ms(torch, lambda: block_prox(gq, qq, e.gl, e.w,
+                                                  index=ix), 10),
+                cuda_ms(torch, lambda: block_prox(gq, qq, e.gl, e.w), 10))
+
+    dk = ForestKernel(kernel_method="gap", device="cuda")
+    dk.forest = deep
+    dk.build_kernel_cache()
+    k2_cases = {  # name: (engine, rows)
+        f"acceptance {BLOCK_ROWS}": (eng, BLOCK_ROWS),
+        f"acceptance {train_rows}": (eng, train_rows),
+        f"deep forest {BLOCK_ROWS}": (dk.engine, BLOCK_ROWS),
+        f"GBT forest {BLOCK_ROWS}": (ge, BLOCK_ROWS)}
+    k2_res = {k: k2_case(k, *v) for k, v in k2_cases.items()}
+    k2_out, _, k2_ms, k2_dense_ms = k2_res[f"acceptance {BLOCK_ROWS}"]
+    k2_tr_ms = k2_res[f"acceptance {train_rows}"][2]
+    k2_err = max(r[1] for r in k2_res.values())
     gl_q, q = eng.gl[:BLOCK_ROWS], eng.q[:BLOCK_ROWS]
-    k2_out = block_prox(gl_q, q, eng.gl, eng.w)
-    k2_plain = block_prox_ref(gl_q, q, eng.gl, eng.w)
-    k2_err = max_err(k2_out, k2_plain)
-    check(k2_err <= ATOL_BLOCK, f"block_prox error {k2_err} > {ATOL_BLOCK}")
-    k2_ms = cuda_ms(torch, lambda: block_prox(gl_q, q, eng.gl, eng.w), 10)
     k2_plain_ms = cuda_ms(
         torch, lambda: block_prox_ref(gl_q, q, eng.gl, eng.w), 2)
+    forms = {k: "leaf" if e.leaf_mode() else "dense"
+             for k, (e, _) in k2_cases.items()}
+    print("K2 leaf form vs dense form (ms, same bits; the engine's leaf "
+          "density and the form it picks in brackets): " + ", ".join(
+              f"{k} {r[2]:.4f} vs {r[3]:.4f} ({e._leaf_density:.5f}: "
+              f"{forms[k]})" for (k, r), (e, _) in zip(k2_res.items(),
+                                                       k2_cases.values())),
+          flush=True)
+    print(f"K2 leaf index of the acceptance engine: {index.nbytes} bytes "
+          f"({index.col.numel()} members, {index.offs.shape[0]} leaves x "
+          f"{index.n_ranges} column ranges of {index.range_w}), built in "
+          f"{idx_ms:.3f} ms", flush=True)
+    check(eng.leaf_mode(), "the acceptance engine takes the dense form")
+    # share of the warm train-side steps: each runs its K2 row blocks
+    blocks_tr = -(-N_TRAIN // train_rows)
+    print(f"K2 in the warm train-side steps: {blocks_tr} blocks x "
+          f"{k2_tr_ms:.4f} ms = {blocks_tr * k2_tr_ms / 1e3:.4f} s of topk "
+          f"{warm['topk_train']:.4f} s and of squared_row_sums "
+          f"{warm['squared_row_sums_train']:.4f} s", flush=True)
     # yardstick: cuSPARSE SpMM of W (CSR) with the dense rows of Q gives
     # P[rows, :]ᵀ in one PyTorch call
     W_dev = torch.sparse_csr_tensor(
@@ -680,23 +793,30 @@ def main() -> int:
           flush=True)
 
     # ---- bounds, from this run's shapes and data ----
-    # K1 reads X once, each real node once (feature, threshold, two
-    # children, leaf id: 24 bytes; not the padding up to M) and writes the
-    # (n, T) int32 leaves
-    n, T, M = N_TRAIN, tables.n_trees, tables.max_nodes
-    n_nodes = sum(t.n_nodes for t in forest.trees_)
-    k1_bytes = n * D * 8 + n_nodes * (4 + 8 + 8 + 4) + n * T * 4
-    k1_bound = k1_bytes / HBM_BYTES_S * 1e3
+    # K1 reads X once, each real node's 16-byte record once (not the
+    # padding up to M) and writes the (n, T) int32 leaves
+    T, M = tables.n_trees, tables.max_nodes
+
+    def k1_bound_ms(Xr, tb, n_nodes):
+        return (Xr.numel() * 8 + n_nodes * 16
+                + Xr.shape[0] * tb.n_trees * 4) / HBM_BYTES_S * 1e3
+    k1_bounds = {k: k1_bound_ms(*v) for k, v in k1_shapes.items()}
+    k1_bound = k1_bounds[f"{N_TRAIN}x{N_TREES}"]
     nq, nw = BLOCK_ROWS, eng.n_ref
     cnt_w = torch.bincount(eng.gl.reshape(-1).long(),
                            minlength=eng.total_leaves)
     collisions = float(cnt_w[gl_q.reshape(-1).long()].sum())
-    # K2's work is one FMA per colliding (i, j, t) — what these inputs
-    # need, not the Nq·Nw·T compares of the dense algorithm — and its
-    # bytes are gl/q of both sides (12 bytes a (row, tree)) and the output
-    k2_bytes = (nq + nw) * T * 12 + nq * nw * 8
+    # K2's work is one FMA per collision whose q and w are both nonzero —
+    # what these inputs need, not the Nq·Nw·T compares of the dense
+    # algorithm; its bytes are gl/q of the query rows (12 bytes a (row,
+    # tree)), the reference side as it reads it (the leaf index) and the
+    # output
+    cnt_nz = (index.offs[:, -1] - index.offs[:, 0]).long()
+    work = float((cnt_nz[gl_q.reshape(-1).long()]
+                  * (q.reshape(-1) != 0)).sum())
+    k2_bytes = nq * T * 12 + index.nbytes + nq * nw * 8
     k2_terms = {"bytes": k2_bytes / HBM_BYTES_S,
-                "operations": collisions / FP64_FMA_S}
+                "operations": work / FP64_FMA_S}
     k2_by = max(k2_terms, key=k2_terms.get)
     # K3/K4 read the code matrix, each instance's row id, label and
     # weight (or K payloads) once and write the table; the work is one add
@@ -718,7 +838,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/leaf_route/csrc/leaf_route.cu",
          "replaces": "src/repro/kernels/leaf_route/leaf_route.py:48",
          "launches": total("leaf_route"),
-         "max_abs_err": max(k1_err, k1_err_deep),
+         "max_abs_err": 0.0,               # every K1 case is bit-exact
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": "bytes", "library_ms": None},
         {"name": "block_prox", "route": "cuda",
@@ -743,12 +863,16 @@ def main() -> int:
          "bound_ms": k4_terms[k4_by] * 1e3, "bound_by": k4_by,
          "library_ms": k4_lib_ms},
     ]
-    print(f"K1 route {n}x{T} (M={M}, {n_nodes} nodes): {k1_ms:.3f} ms, "
-          f"plain {k1_plain_ms:.3f} ms, bound {k1_bound:.4f} ms")
-    print(f"K2 block {nq}x{nw}x{T}: {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} "
-          f"ms, cuSPARSE SpMM {k2_lib_ms:.3f} ms (err {lib_err:.2e}), bound "
-          f"{k2_terms[k2_by] * 1e3:.4f} ms by {k2_by} "
-          f"(collisions {collisions:.3e})")
+    print(f"K1 route (M={M}), ms a wrapper call / on the device: " +
+          ", ".join(f"{k} {k1_times[k][0]:.4f} / {k1_times[k][1]:.4f} "
+                    f"(bound {k1_bounds[k]:.5f})" for k in k1_shapes)
+          + f"; plain {k1_plain_ms:.3f} ms at {N_TRAIN}x{N_TREES}")
+    print(f"K2 block {nq}x{nw}x{T}: {k2_ms:.4f} ms in the leaf form "
+          f"({train_rows} rows {k2_tr_ms:.4f} ms; dense form "
+          f"{k2_dense_ms:.4f} ms), plain "
+          f"{k2_plain_ms:.3f} ms, cuSPARSE SpMM {k2_lib_ms:.3f} ms (err "
+          f"{lib_err:.2e}), bound {k2_terms[k2_by] * 1e3:.4f} ms by {k2_by} "
+          f"(collisions {collisions:.3e}, with nonzero q and w {work:.3e})")
     print(f"K3 level 1 {N_TREES} nodes x {m3} instances x {D} x {n_bins} x "
           f"{N_CLASSES}: {k3_ms:.3f} ms a wrapper call with host bounds "
           f"({k3_dev_ms:.3f} ms in its kernels on the device, host share "

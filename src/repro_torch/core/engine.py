@@ -11,7 +11,10 @@ the hot paths need:
   calls on one batch never re-route.
 
 Products ``P V`` run as device segment sums (``core.torch_ops``); dense
-blocks, top-k and squared row sums run through the ``block_prox`` kernel.
+blocks, top-k and squared row sums run through the ``block_prox`` kernel,
+which a CUDA engine whose leaves are small feeds its reference side grouped
+by leaf (``leaf_index``, built on the device at the first such call); with
+big leaves it runs the kernel's dense form.
 On a CPU engine the same calls take the kernels' plain versions, and large
 train-side top-k and squared row sums take the host CSR factors instead.
 Results are tensors on the engine's device.
@@ -31,7 +34,9 @@ import scipy.sparse as sp
 import torch
 from scipy.sparse.linalg import LinearOperator
 
-from ..kernels.block_prox.ops import block_prox
+from ..kernels.block_prox.ops import (LEAF_DENSITY_MAX, LeafIndex,
+                                      block_prox, build_leaf_index,
+                                      leaf_density)
 from . import torch_ops
 from .factorization import full_kernel, topk_neighbors
 from .leafmap import build_leaf_map, sparse_bytes
@@ -112,6 +117,9 @@ class ProximityEngine:
         self.qs_cache_hits = 0
         self.qs_cache_misses = 0
         self._train_row_sums: Optional[torch.Tensor] = None
+        self._leaf_index: Optional[LeafIndex] = None
+        self._leaf_density: Optional[float] = None
+        self._index_lock = threading.Lock()
 
     @property
     def n_ref(self) -> int:
@@ -215,6 +223,39 @@ class ProximityEngine:
     def full_kernel(self, diagonal: Optional[float] = None) -> sp.csr_matrix:
         return full_kernel(self.Q, self.W, diagonal=diagonal)
 
+    def leaf_index(self) -> LeafIndex:
+        """The reference factors grouped by leaf, as the block kernel reads
+        them: built on the engine's device at first use and kept (its bytes
+        are in ``memory_bytes``)."""
+        with self._index_lock:
+            if self._leaf_index is None:
+                self._leaf_index = build_leaf_index(
+                    self.gl, self.w, n_leaves=self.total_leaves)
+            return self._leaf_index
+
+    def leaf_mode(self) -> bool:
+        """Whether the block kernel walks the leaf index rather than
+        comparing densely: when one (query row, tree) meets at most
+        ``LEAF_DENSITY_MAX`` of the reference columns (``leaf_density``,
+        taken once)."""
+        if self._leaf_density is None:
+            self._leaf_density = leaf_density(self.gl, self.w,
+                                              self.total_leaves)
+        return self._leaf_density <= LEAF_DENSITY_MAX
+
+    def _block(self, gl_q: torch.Tensor, q: torch.Tensor,
+               cols=None) -> torch.Tensor:
+        """P for query factors ``gl_q``/``q`` against every reference row
+        (or ``cols``): in the kernel's leaf-collision form through the
+        cached index on a CUDA engine in leaf mode, else in its dense
+        form."""
+        if cols is not None:
+            c = self._tensor(cols, torch.int64)
+            return block_prox(gl_q, q, self.gl[c], self.w[c])
+        index = self.leaf_index() if self.device.type == "cuda" \
+            and self.leaf_mode() else None
+        return block_prox(gl_q, q, self.gl, self.w, index=index)
+
     def kernel_block(self, rows=None, cols=None, X_rows=None) -> torch.Tensor:
         """Dense P[rows, cols] (rows may be an OOS batch via X_rows)."""
         qs = self.query_state(X_rows)
@@ -222,11 +263,7 @@ class ProximityEngine:
         if rows is not None:
             r = self._tensor(rows, torch.int64)
             gl_q, q = gl_q[r], q[r]
-        gl_w, w = self.gl, self.w
-        if cols is not None:
-            c = self._tensor(cols, torch.int64)
-            gl_w, w = gl_w[c], w[c]
-        return block_prox(gl_q, q, gl_w, w)
+        return self._block(gl_q, q, cols)
 
     def _dense_blocks(self, qs: QueryState):
         """Row chunks of P[qs, :] as (i0, i1, block), sized by output
@@ -234,8 +271,7 @@ class ProximityEngine:
         step = max(1, _BLOCK_BYTES // (8 * max(self.n_ref, 1)))
         for i0 in range(0, qs.n, step):
             i1 = min(i0 + step, qs.n)
-            yield i0, i1, block_prox(qs.gl[i0:i1], qs.q[i0:i1], self.gl,
-                                     self.w)
+            yield i0, i1, self._block(qs.gl[i0:i1], qs.q[i0:i1])
 
     def _sparse_train(self, X) -> bool:
         return (self.device.type == "cpu" and X is None
@@ -341,8 +377,9 @@ class ProximityEngine:
 
     # ---------------- accounting ----------------
     def memory_bytes(self) -> dict:
-        """Resident factor bytes per component (dense factors on the
-        device, CSR maps and leaf values on the host)."""
+        """Resident factor bytes per component (dense factors and, once
+        built, the block kernel's leaf index on the device; CSR maps and
+        leaf values on the host)."""
         def nbytes(t):
             return t.numel() * t.element_size()
         dense = nbytes(self.gl) + nbytes(self.q) + \
@@ -351,5 +388,7 @@ class ProximityEngine:
                "W": 0 if self.W is self.Q else sparse_bytes(self.W)}
         if self.leaf_values is not None:
             out["leaf_values"] = int(self.leaf_values.nbytes)
+        index = self._leaf_index
+        out["leaf_index"] = 0 if index is None else index.nbytes
         out["total"] = sum(out.values())
         return out

@@ -3,10 +3,21 @@ version for CPU tensors, and nothing else.
 
 Replaces ``repro/kernels/block_prox/ops.py::block_prox``, which downgrades
 float64 to float32 for the TPU; here the engine's float64 is kept.
+
+The kernel has two forms with the same bits.  Given a :class:`LeafIndex`
+(the reference side grouped by leaf: each leaf's member columns in
+ascending order, with their weights) it works in the leaf-collision form
+and adds ``q·w`` only where leaves collide; without one it works in the
+dense form on ``(gl_w, w)``, comparing every (row, column, tree).  The
+engine builds an index once, with ``build_leaf_index``, where its leaves
+are small enough (``leaf_density`` at most ``LEAF_DENSITY_MAX``).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -14,25 +25,169 @@ from .. import _build
 from ..._tensor import require
 from .ref import block_prox_ref
 
-__all__ = ["block_prox"]
+__all__ = ["LeafIndex", "build_leaf_index", "leaf_density", "leaf_plan",
+           "LEAF_DENSITY_MAX", "block_prox"]
+
+# Reference columns are split into at most this many ranges, each a
+# multiple of the widest tile; the index keeps a member offset per (leaf,
+# range), so its size grows with the leaves, not with leaves x columns.
+MAX_RANGES = 16
+TILE_MAX = 1024          # columns of the widest shared-memory tile
+TILE_MIN = 128
+ROWS = 8                 # query rows (warps) per block, as in the source
+# Above this share of the reference columns met by one (query row, tree),
+# the dense form is the faster one: on the H100 the leaf form took 0.19 ms
+# against 0.63 at a share of 0.015 and 1.8 ms against 0.66 at 0.16 (512 x
+# 50,000 x 100; PERF.md).
+LEAF_DENSITY_MAX = 0.05
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafIndex:
+    """The reference side of P grouped by leaf, on one device.
+
+    Leaf ``l`` (a global leaf id, below ``n_leaves``) has the members
+    ``col[offs[l, 0]:offs[l, -1]]`` (ascending reference columns, zero
+    weights left out) with weights ``w`` at the same positions, and
+    ``offs[l, r]`` is its first member at or past column ``r * range_w``.
+    """
+
+    offs: torch.Tensor        # (n_leaves, n_ranges + 1) int32
+    col: torch.Tensor         # (nnz,) int32
+    w: torch.Tensor           # (nnz,) float64
+    n_ref: int
+    n_trees: int
+    range_w: int
+
+    @property
+    def n_leaves(self) -> int:
+        return int(self.offs.shape[0])
+
+    @property
+    def n_ranges(self) -> int:
+        return int(self.offs.shape[1]) - 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.col.device
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.offs, self.col, self.w))
+
+
+def _ranges(nw: int) -> Tuple[int, int]:
+    """(range width, number of ranges) for ``nw`` reference columns."""
+    per = max(1, math.ceil(nw / MAX_RANGES))
+    width = math.ceil(per / TILE_MAX) * TILE_MAX
+    return width, max(1, math.ceil(nw / width))
+
+
+def build_leaf_index(gl_w: torch.Tensor, w: torch.Tensor,
+                     n_leaves: int) -> LeafIndex:
+    """Group the reference factors ``gl_w``/``w`` (Nw, T) by leaf.
+
+    ``gl_w`` holds global leaf ids below ``n_leaves`` (each tree's leaves a
+    disjoint range, as the engine's are).  Torch ops on the factors'
+    device, and one host read: the member count.
+    """
+    require(gl_w, torch.int32, "gl_w")
+    require(w, torch.float64, "w", gl_w.device)
+    if gl_w.dim() != 2 or w.shape != gl_w.shape:
+        raise ValueError(f"need gl_w/w (Nw, T); got {tuple(gl_w.shape)}, "
+                         f"{tuple(w.shape)}")
+    nw, T = gl_w.shape
+    width, n_ranges = _ranges(nw)
+    if n_leaves * (n_ranges + 1) >= 2 ** 31 or nw * T >= 2 ** 31:
+        raise ValueError("leaf index too large for int32 offsets")
+    i64 = dict(dtype=torch.int64, device=gl_w.device)
+    # key = leaf·Nw + column: sorted, members come grouped by leaf and in
+    # column order; zero weights sort past every leaf and are cut off
+    cols = torch.arange(nw, **i64)[:, None]
+    key = torch.where(w != 0, gl_w.long() * nw + cols,
+                      n_leaves * nw).reshape(-1)
+    key, order = torch.sort(key)
+    nnz = int((w != 0).sum())
+    key, order = key[:nnz], order[:nnz]
+    starts = (torch.arange(n_ranges + 1, **i64) * width).clamp_max(nw)
+    bounds = torch.arange(n_leaves, **i64)[:, None] * nw + starts[None, :]
+    offs = torch.searchsorted(key, bounds.reshape(-1)).to(torch.int32)
+    return LeafIndex(
+        offs=offs.view(n_leaves, n_ranges + 1),
+        col=(key % max(nw, 1)).to(torch.int32),
+        w=w.reshape(-1)[order].contiguous(), n_ref=int(nw), n_trees=int(T),
+        range_w=width)
+
+
+def leaf_density(gl_w: torch.Tensor, w: torch.Tensor, n_leaves: int) -> float:
+    """The share of the ``Nw`` reference columns that one (query row, tree)
+    meets, for queries that fall into leaves as the references do: the
+    size-biased mean of the leaves' nonzero-weight member counts, Σ m² /
+    Σ m, over Nw.  ``gl_w`` holds global leaf ids below ``n_leaves``."""
+    nw = gl_w.shape[0]
+    key = torch.where(w != 0, gl_w.long(), n_leaves).reshape(-1)
+    m = torch.bincount(key, minlength=n_leaves + 1)[:n_leaves].double()
+    total = float(m.sum())
+    return float((m * m).sum()) / total / nw if total else 0.0
+
+
+def leaf_plan(n_trees: int, smem_limit: int) -> Tuple[int, int]:
+    """(tile columns, dynamic shared bytes) of a launch over ``n_trees``
+    trees: ``ROWS`` rows of float64 tile plus three int32 cursors per (row,
+    tree).  The widest tile, from ``TILE_MAX`` halving down to
+    ``TILE_MIN``, that fits ``smem_limit``; raises when none does."""
+    state = ROWS * n_trees * 12
+    tile = TILE_MAX
+    while tile > TILE_MIN and ROWS * tile * 8 + state > smem_limit:
+        tile //= 2
+    smem = ROWS * tile * 8 + state
+    if smem > smem_limit:
+        raise ValueError(f"block_prox: {n_trees} trees need {smem} bytes of "
+                         f"shared memory, more than the card's {smem_limit}")
+    return tile, smem
+
+
+_LIB: Optional[ctypes.CDLL] = None
+_SMEM: Dict[int, int] = {}
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("block_prox")
-    lib.block_prox.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-    lib.block_prox.restype = ctypes.c_int
-    return lib
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("block_prox")
+        lib.block_prox_leaf.argtypes = [ctypes.c_void_p] * 2 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p] + [
+            ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.block_prox_leaf.restype = ctypes.c_int
+        lib.block_prox_dense.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_void_p]
+        lib.block_prox_dense.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _smem_limit(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMEM:
+        _SMEM[idx] = int(torch.cuda.get_device_properties(idx)
+                         .shared_memory_per_block_optin)
+    return _SMEM[idx]
 
 
 def block_prox(gl_q: torch.Tensor, q: torch.Tensor, gl_w: torch.Tensor,
-               w: torch.Tensor) -> torch.Tensor:
+               w: torch.Tensor,
+               index: Optional[LeafIndex] = None) -> torch.Tensor:
     """(Nq, Nw) float64 block P[i,j] = Σ_t q[i,t]·w[j,t]·1[gl_q[i,t] ==
     gl_w[j,t]] for int32 leaf ids (Nq, T), (Nw, T) and float64 weights of
     the same shapes, all on one device.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in ``block_prox.launches``) or raise.
+    CPU tensors take the plain version (``index`` unused); CUDA tensors
+    launch the kernel (counted in ``block_prox.launches``): in the
+    leaf-collision form on ``index``, a :class:`LeafIndex` of ``(gl_w,
+    w)``, or in the dense form without one.  A failed launch raises.
     """
     dev = gl_q.device
     for t, dt, name in ((gl_q, torch.int32, "gl_q"), (q, torch.float64, "q"),
@@ -47,15 +202,32 @@ def block_prox(gl_q: torch.Tensor, q: torch.Tensor, gl_w: torch.Tensor,
         return block_prox_ref(gl_q, q, gl_w, w)
     if dev.type != "cuda":
         raise ValueError(f"block_prox runs on 'cuda' or 'cpu', got {dev}")
-    gl_q, q, gl_w, w = (t.contiguous() for t in (gl_q, q, gl_w, w))
     nq, T = gl_q.shape
     nw = gl_w.shape[0]
+    if index is not None and (index.n_ref != nw or index.n_trees != T
+                              or index.device != dev):
+        raise ValueError(f"index of {index.n_ref} x {index.n_trees} on "
+                         f"{index.device} does not fit gl_w {(nw, T)} on "
+                         f"{dev}")
+    if T == 0:
+        return torch.zeros((nq, nw), dtype=torch.float64, device=dev)
+    gl_q, q = gl_q.contiguous(), q.contiguous()
     out = torch.empty((nq, nw), dtype=torch.float64, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.block_prox(gl_q.data_ptr(), q.data_ptr(), gl_w.data_ptr(),
-                             w.data_ptr(), out.data_ptr(), nq, nw, T, stream)
+        if index is None:
+            gl_w, w = gl_w.contiguous(), w.contiguous()
+            err = lib.block_prox_dense(
+                gl_q.data_ptr(), q.data_ptr(), gl_w.data_ptr(), w.data_ptr(),
+                out.data_ptr(), nq, nw, T, stream)
+        else:
+            tile, smem = leaf_plan(T, _smem_limit(dev))
+            err = lib.block_prox_leaf(
+                gl_q.data_ptr(), q.data_ptr(), nq, T, index.offs.data_ptr(),
+                index.n_leaves, index.n_ranges, index.range_w,
+                index.col.data_ptr(), index.w.data_ptr(), out.data_ptr(), nw,
+                tile, smem, stream)
     _build.check(lib, err, "block_prox launch")
     block_prox.launches += 1
     return out

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Edge cases the acceptance-size run in ``chip_smoke.py`` does not reach:
-NaN features, stumps and padding, ragged tiles, a single tree.  Marked
+NaN features, stumps and padding, features too wide to stage, ragged
+tiles and column ranges, a single tree, leaves of one sample and of
+thousands, many zero weights, the exact fma order of the block kernel.  Marked
 ``cuda``; on a machine without a card every test skips (the fixture
 decides, at run time).  On the card:
 
@@ -12,9 +14,9 @@ import pytest
 import torch
 
 from repro_torch.forest.trees import Tree, TreeArrays
-from repro_torch.kernels.block_prox.ops import block_prox
+from repro_torch.kernels.block_prox.ops import block_prox, build_leaf_index
 from repro_torch.kernels.block_prox.ref import block_prox_ref
-from repro_torch.kernels.leaf_route.ops import route, route_tables
+from repro_torch.kernels.leaf_route.ops import route, route_plan, route_tables
 from repro_torch.kernels.leaf_route.ref import route_ref
 
 pytestmark = pytest.mark.cuda
@@ -65,8 +67,7 @@ def _check_route(trees, X, dev):
     got = route(Xd, tables)
     torch.cuda.synchronize()
     assert route.launches == n0 + 1
-    want = route_ref(Xd, tables.feature, tables.threshold, tables.lr,
-                     tables.leaf_id, tables.n_trees, tables.max_nodes)
+    want = route_ref(Xd, *tables.flat(), tables.n_trees, tables.max_nodes)
     assert torch.equal(got, want)
 
 
@@ -94,6 +95,38 @@ def test_route_kernel_deep_trees(dev):
     _check_route(trees, rng.normal(size=(700, 6)), dev)
 
 
+@pytest.mark.parametrize("d", [48, 49, 100, 192, 193, 300])
+def test_route_kernel_wide_features(dev, d):
+    """Samples staged 128, 64 or 32 a block, and past 192 features read
+    through L2 (``route_plan``); NaN features and stumps alike."""
+    rng = np.random.default_rng(d)
+    staged = route_plan(700, d, 6, 132)[1]
+    assert staged == (d <= 192)
+    trees = [_tree(rng, 511, d) for _ in range(5)] + [_stump()]
+    X = rng.normal(size=(700, d))
+    X[::3, trees[0].feature[0]] = np.nan
+    X[1::5] = np.nan
+    _check_route(trees, X, dev)
+
+
+def test_route_kernel_nan_and_stumps_next_to_deep_trees(dev):
+    rng = np.random.default_rng(8)
+    trees = [_stump(), _tree(rng, 20_001, 6, p_split=1.0), _stump(),
+             _tree(rng, 4001, 6), _tree(rng, 7, 6)]
+    X = rng.normal(size=(3000, 6))
+    for f in range(6):
+        X[f::7, f] = np.nan
+    _check_route(trees, X, dev)
+
+
+@pytest.mark.parametrize("n,T", [(50, 70), (20_000, 70), (4097, 33)])
+def test_route_kernel_tree_groups(dev, n, T):
+    """Groups of 8 to 32 trees a block, ragged in trees and samples."""
+    rng = np.random.default_rng(n + T)
+    _check_route([_tree(rng, 127, 5) for _ in range(T)],
+                 rng.normal(size=(n, 5)), dev)
+
+
 @pytest.mark.parametrize("nq,nw,T", [(1, 1, 1), (63, 65, 15), (64, 64, 16),
                                      (130, 1000, 33), (700, 129, 100)])
 def test_block_prox_kernel_ragged(dev, nq, nw, T):
@@ -105,11 +138,142 @@ def test_block_prox_kernel_ragged(dev, nq, nw, T):
     q = torch.as_tensor(rng.random((nq, T)), device=dev)
     w = torch.as_tensor(rng.random((nw, T)), device=dev)
     n0 = block_prox.launches
-    got = block_prox(gl_q, q, gl_w, w)
+    got = _k2_check(gl_q, q, gl_w, w)
     torch.cuda.synchronize()
-    assert block_prox.launches == n0 + 1
-    want = block_prox_ref(gl_q, q, gl_w, w)
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+    assert block_prox.launches == n0 + 3
+
+
+def _global(gl_q, gl_w):
+    """Per-tree leaf ids made global (tree t's ids shifted by t·L), as the
+    leaf index wants them; collisions are unchanged.  Returns the shifted
+    ids and the number of global leaves."""
+    L = int(max(gl_q.max(), gl_w.max())) + 1 if gl_w.numel() else 1
+    off = torch.arange(gl_w.shape[1], dtype=torch.int32,
+                       device=gl_w.device) * L
+    return gl_q + off, gl_w + off, L * gl_w.shape[1]
+
+
+def _k2_check(gl_q, q, gl_w, w, index=None):
+    """K2's leaf-collision form (on ``index``, or on an index of global ids
+    built here) within 1e-12 of the plain version, the same bits on a
+    second launch and in the dense form."""
+    if index is None:
+        gl_q, gl_w, n_leaves = _global(gl_q, gl_w)
+        index = build_leaf_index(gl_w, w, n_leaves)
+    got = block_prox(gl_q, q, gl_w, w, index=index)
+    torch.testing.assert_close(got, block_prox_ref(gl_q, q, gl_w, w),
+                               rtol=0, atol=1e-12)
+    assert torch.equal(block_prox(gl_q, q, gl_w, w, index=index), got)
+    assert torch.equal(block_prox(gl_q, q, gl_w, w), got)
+    return got
+
+
+@pytest.mark.parametrize("nq,nw,T", [(37, 40_000, 12), (9, 17_409, 3),
+                                     (20, 300, 700), (3, 50, 2000)])
+def test_block_prox_kernel_ranges_and_many_trees(dev, nq, nw, T):
+    """Several ragged column ranges of the index; and so many trees that
+    the cursors shrink the shared-memory tile (700 trees: 128 columns;
+    2000: one block an SM)."""
+    rng = np.random.default_rng(nw + T)
+    as_t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=dev)  # noqa
+    gl_q = as_t(rng.integers(0, 9, (nq, T)), torch.int32)
+    gl_w = as_t(rng.integers(0, 9, (nw, T)), torch.int32)
+    q = as_t(rng.random((nq, T)) * (rng.random((nq, T)) < 0.5))
+    w = as_t(rng.random((nw, T)) * (rng.random((nw, T)) < 0.8))
+    _k2_check(gl_q, q, gl_w, w)
+
+
+def _engine(kind, n=3000):
+    from repro_torch.core.api import ForestKernel
+    from repro_torch.data.synthetic import friedman1, gaussian_classes
+    rng = np.random.default_rng(7)
+    if kind == "deep":                 # random labels: one-sample leaves
+        X = rng.normal(size=(n, 8))
+        fk = ForestKernel(kernel_method="gap", n_trees=8, seed=1,
+                          device="cuda").fit(X, rng.integers(0, 5, n))
+    elif kind == "gbt":                # depth 6: leaves of hundreds
+        X, y = friedman1(n, d=8, seed=2)
+        fk = ForestKernel(model_type="gbt", task="regression",
+                          kernel_method="boosted", n_trees=20, max_depth=6,
+                          seed=0, device="cuda").fit(X, y)
+    else:                              # gap: q = 0 on in-bag trees
+        X, y = gaussian_classes(n, d=8, n_classes=7, seed=2)
+        fk = ForestKernel(kernel_method="gap", n_trees=16, seed=3,
+                          device="cuda").fit(X, y)
+    return fk.engine
+
+
+@pytest.mark.parametrize("kind,leaf", [("deep", True), ("gbt", False),
+                                       ("gap", True)])
+def test_block_prox_kernel_on_forests(dev, kind, leaf):
+    """The engine's factors: the form its leaf density picks (the index is
+    built only for the leaf form), both forms on its cached index at a
+    ragged row count, and a column subset (dense form) equal bit for bit to
+    those columns of the full block."""
+    eng = _engine(kind)
+    assert eng.leaf_mode() is leaf
+    blk = eng.kernel_block(np.arange(77))
+    assert (eng._leaf_index is not None) is leaf
+    gq, qq = eng.gl[:77], eng.q[:77]
+    assert torch.equal(blk, block_prox(gq, qq, eng.gl, eng.w))
+    _k2_check(gq, qq, eng.gl, eng.w, index=eng.leaf_index())
+    assert eng.memory_bytes()["leaf_index"] == eng.leaf_index().nbytes
+    cols = np.sort(np.random.default_rng(0).choice(eng.n_ref, 900,
+                                                   replace=False))
+    c = torch.as_tensor(cols, device=dev)
+    got = eng.kernel_block(np.arange(77), cols)
+    torch.testing.assert_close(got, block_prox_ref(gq, qq, eng.gl[c],
+                                                   eng.w[c]),
+                               rtol=0, atol=1e-12)
+    assert torch.equal(got, blk[:, c])
+
+
+def test_block_prox_kernel_many_zero_weights(dev):
+    """Zero q skips a (row, tree), zero w leaves a member out of the index;
+    all-zero rows and columns give exact zeros."""
+    rng = np.random.default_rng(12)
+    nq, nw, T = 130, 2000, 40
+    as_t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=dev)  # noqa
+    q = rng.random((nq, T)) * (rng.random((nq, T)) < 0.1)
+    w = rng.random((nw, T)) * (rng.random((nw, T)) < 0.4)
+    q[:7] = 0.0
+    w[:, :3] = 0.0
+    w[100:150] = 0.0
+    gl_q = as_t(rng.integers(0, 3, (nq, T)), torch.int32)
+    gl_w = as_t(rng.integers(0, 3, (nw, T)), torch.int32)
+    got = _k2_check(gl_q, as_t(q), gl_w, as_t(w))
+    assert not got[:7].any() and not got[:, 100:150].any()
+    _, gw, n_leaves = _global(gl_q, gl_w)
+    assert build_leaf_index(gw, as_t(w), n_leaves).col.numel() \
+        == (w != 0).sum()
+
+
+def _fma(a, b, c):
+    """Correctly rounded a·b + c in float64 (exact rationals, one
+    rounding)."""
+    from fractions import Fraction
+    return float(Fraction(a) * Fraction(b) + Fraction(c))
+
+
+def test_block_prox_kernel_fma_order(dev):
+    """Each P[i,j] is fma(q, w, acc) over the colliding trees in ascending
+    order from 0.0, bit for bit: the dense form's sequence."""
+    rng = np.random.default_rng(13)
+    nq, nw, T = 24, 700, 30
+    gl_q = rng.integers(0, 3, (nq, T)).astype(np.int32)
+    gl_w = rng.integers(0, 3, (nw, T)).astype(np.int32)
+    q = rng.normal(size=(nq, T)) * (rng.random((nq, T)) < 0.7)
+    w = rng.normal(size=(nw, T)) * 1e3
+    got = block_prox(*(torch.as_tensor(a, device=dev)
+                       for a in (gl_q, q, gl_w, w))).cpu().numpy()
+    want = np.zeros((nq, nw))
+    for i in range(nq):
+        for j in range(nw):
+            acc = 0.0
+            for t in np.flatnonzero(gl_q[i] == gl_w[j]):
+                acc = _fma(q[i, t], w[j, t], acc)
+            want[i, j] = acc
+    assert np.array_equal(got.view(np.int64), want.view(np.int64))
 
 
 def test_forest_kernel_runs_on_the_card(dev):

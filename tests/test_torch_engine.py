@@ -186,6 +186,26 @@ def test_operator_and_memory(kernels):
     assert port.engine.memory_bytes()["total"] > 0
 
 
+def test_memory_bytes_counts_the_leaf_index(kernels):
+    """The block kernel's leaf index is built at first use (a CPU engine's
+    blocks take the plain version and never build it) and, once built, is
+    counted in ``memory_bytes``."""
+    ref, port = kernels["oob"]
+    eng = port.engine
+    eng._leaf_index = None
+    eng.kernel_block(np.arange(5))
+    before = eng.memory_bytes()
+    assert before["leaf_index"] == 0
+    index = eng.leaf_index()
+    assert eng.leaf_index() is index
+    after = eng.memory_bytes()
+    assert after["leaf_index"] == index.nbytes > 0
+    assert after["total"] == before["total"] + index.nbytes
+    assert index.nbytes == sum(t.numel() * t.element_size()
+                               for t in (index.offs, index.col, index.w))
+    assert index.col.numel() == eng.W.nnz
+
+
 def test_oos_states_are_cached_and_q_built_lazily(kernels):
     ref, port = kernels["kerf"]
     Xte = kernels["_data"][2]

@@ -24,11 +24,14 @@ from repro_torch.forest.trees import (TreeArrays, route_forest_batched,
                                       route_tree, unpack_trees)
 from repro_torch.kernels import _build
 from repro_torch.kernels.block_prox import ops as bp_ops
-from repro_torch.kernels.block_prox.ops import block_prox
+from repro_torch.kernels.block_prox.ops import (LEAF_DENSITY_MAX, block_prox,
+                                               build_leaf_index, leaf_density,
+                                               leaf_plan)
 from repro_torch.kernels.histogram import ops as h_ops
 from repro_torch.kernels.histogram.ops import histogram, moments
 from repro_torch.kernels.leaf_route import ops as lr_ops
-from repro_torch.kernels.leaf_route.ops import route, route_tables
+from repro_torch.kernels.leaf_route.ops import (pack_nodes, route, route_plan,
+                                               route_tables)
 
 
 def _single_node_tree() -> RefTree:
@@ -164,6 +167,56 @@ def test_route_rejects_bad_inputs(fitted_ref_forest):
         route(torch.as_tensor(X[:, :2]), tables)
 
 
+def test_packed_route_records_encode_every_node():
+    """One 16-byte record a node: the float32 threshold's bits, the
+    feature, global child ids on internal nodes, the leaf id (and 0) on
+    leaves; padding and stumps included.  ``RouteTables.flat`` gives back
+    what the plain version reads."""
+    rng = np.random.default_rng(5)
+    trees = [_single_node_tree(), _random_tree(rng, 63, d=4),
+             _random_tree(rng, 15, d=4), _single_node_tree()]
+    ta = TreeArrays.from_trees(unpack_trees(ref_pack_trees(trees)))
+    T, M = ta.feature.shape
+    rec = pack_nodes(ta).reshape(T, M, 4)
+    assert rec.dtype == np.int32
+    np.testing.assert_array_equal(rec[..., 1], ta.feature)
+    np.testing.assert_array_equal(rec[..., 0].view(np.float32), ta.threshold)
+    base = (np.arange(T) * M)[:, None]
+    internal = ta.feature >= 0
+    assert internal.sum() > 0 and (~internal).sum() > T   # leaves, padding
+    np.testing.assert_array_equal(rec[..., 2][internal],
+                                  (ta.left + base)[internal])
+    np.testing.assert_array_equal(rec[..., 3][internal],
+                                  (ta.right + base)[internal])
+    np.testing.assert_array_equal(rec[..., 2][~internal],
+                                  ta.leaf_id[~internal])
+    assert not rec[..., 3][~internal].any()
+    feature, threshold, lr, leaf_id = route_tables(ta, "cpu").flat()
+    f_ref, thr_ref, lr_ref, leaf_ref = ta.flat()
+    np.testing.assert_array_equal(feature.numpy(), f_ref)
+    np.testing.assert_array_equal(threshold.numpy(), thr_ref)
+    inner = np.repeat(internal.ravel(), 2)
+    np.testing.assert_array_equal(lr.numpy()[inner], lr_ref[inner])
+    leaf = ~internal.ravel()
+    np.testing.assert_array_equal(leaf_id.numpy()[leaf], leaf_ref[leaf])
+
+
+@pytest.mark.parametrize("n,d,T,want", [
+    (50_000, 20, 100, (64, True, 32)),    # acceptance: 782 x 4 blocks
+    (5_000, 20, 100, (64, True, 16)),     # an OOS batch: fewer trees a block
+    (50_000, 20, 1, (64, True, 32)),      # a GBT stage: one tree
+    (50_000, 96, 100, (64, True, 32)),    # 64 x 96 x 8 B = 48 KB
+    (50_000, 97, 100, (32, True, 32)),
+    (50_000, 192, 100, (32, True, 32)),
+    (50_000, 193, 100, (64, False, 32)),  # too wide: through L2
+    (100, 300, 40, (64, False, 8))])
+def test_route_plan(n, d, T, want):
+    tile, staged, tb = route_plan(n, d, T, 132)
+    assert (tile, staged, tb) == want
+    assert not staged or tile * d * 8 <= 48 * 1024
+    assert tb >= 256 // tile
+
+
 # ----------------------------------------------------------------- K2 plain
 
 def _block_inputs(seed, nq, nw, T, n_leaf=5):
@@ -189,6 +242,143 @@ def test_block_prox_plain_matches_pallas_interpret_f64(nq, nw, T):
             jnp.asarray(gl_q), jnp.asarray(q), jnp.asarray(gl_w),
             jnp.asarray(w), interpret=True, dtype=jnp.float64))
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12)
+
+
+def _members(gl_col, w_col, leaf):
+    """Columns with ``leaf`` and a nonzero weight, ascending, and their
+    weights."""
+    j = np.flatnonzero((gl_col == leaf) & (w_col != 0))
+    return j, w_col[j]
+
+
+@pytest.mark.parametrize("nw,T,n_leaf", [(20_000, 5, 7), (1000, 9, 40),
+                                         (3, 2, 2), (17_000, 3, 1)])
+def test_leaf_index_lists_each_leaf_in_column_order(nw, T, n_leaf):
+    """For every leaf the index lists exactly the columns with that leaf
+    and a nonzero weight, ascending, with their weights; each column
+    range's offset is its first member at or past the range's start, on
+    ragged ranges too; leaves no column reaches are empty."""
+    rng = np.random.default_rng(nw + T)
+    gl = (rng.integers(0, n_leaf, size=(nw, T))
+          + np.arange(T) * (n_leaf + 1)).astype(np.int32)   # global ids
+    n_leaves = T * (n_leaf + 1)
+    w = rng.random((nw, T)) * (rng.random((nw, T)) < 0.6)
+    idx = build_leaf_index(torch.as_tensor(gl), torch.as_tensor(w), n_leaves)
+    assert (idx.n_ref, idx.n_trees, idx.n_leaves) == (nw, T, n_leaves)
+    assert idx.n_ranges == -(-nw // idx.range_w) and idx.n_ranges <= 16
+    assert idx.range_w % 1024 == 0
+    col, mw, offs = idx.col.numpy(), idx.w.numpy(), idx.offs.numpy()
+    starts = np.minimum(np.arange(idx.n_ranges + 1) * idx.range_w, nw)
+    assert col.size == (w != 0).sum()
+    for leaf in range(n_leaves):
+        t = leaf // (n_leaf + 1)
+        j, wj = _members(gl[:, t], w[:, t], leaf)
+        a, b = offs[leaf, 0], offs[leaf, -1]
+        np.testing.assert_array_equal(col[a:b], j)
+        np.testing.assert_array_equal(mw[a:b], wj)
+        np.testing.assert_array_equal(offs[leaf],
+                                      a + np.searchsorted(j, starts))
+
+
+def test_leaf_index_of_global_ids_is_the_csc_of_w():
+    """With global leaf ids (the engine's), slot = leaf id and the members
+    of each leaf are the CSC form of the reference map W."""
+    X, y = gaussian_classes(600, d=6, n_classes=3, seed=3)
+    from repro_torch.core.api import ForestKernel
+    fk = ForestKernel(kernel_method="gap", n_trees=7, seed=1,
+                      device="cpu").fit(X, y)
+    eng = fk.engine
+    idx = build_leaf_index(eng.gl, eng.w, n_leaves=eng.total_leaves)
+    Wc = eng.W.tocsc()
+    Wc.sort_indices()
+    offs = idx.offs.numpy()
+    assert offs.shape == (eng.total_leaves, idx.n_ranges + 1)
+    np.testing.assert_array_equal(offs[:, 0], Wc.indptr[:-1])
+    np.testing.assert_array_equal(offs[:, -1], Wc.indptr[1:])
+    np.testing.assert_array_equal(idx.col.numpy(), Wc.indices)
+    np.testing.assert_array_equal(idx.w.numpy(), Wc.data)
+
+
+@pytest.mark.parametrize("kind,leaf", [("deep", True), ("gbt", False)])
+def test_leaf_density_picks_the_form(kind, leaf):
+    """``leaf_density`` is Σ m² / Σ m / Nw over the leaves' nonzero-weight
+    member counts m (the CSC column counts of W); an engine walks the leaf
+    index when it is at most ``LEAF_DENSITY_MAX``: one-sample leaves of a
+    random-label forest do, depth-2 boosting stages do not."""
+    from repro_torch.core.api import ForestKernel
+    rng = np.random.default_rng(4)
+    X = rng.normal(size=(800, 6))
+    if kind == "deep":
+        fk = ForestKernel(kernel_method="gap", n_trees=6, seed=0,
+                          device="cpu").fit(X, rng.integers(0, 4, 800))
+    else:
+        fk = ForestKernel(model_type="gbt", task="regression",
+                          kernel_method="boosted", n_trees=6, max_depth=2,
+                          seed=0, device="cpu").fit(X, X[:, 0] + X[:, 1])
+    eng = fk.engine
+    m = np.diff(eng.W.tocsc().indptr).astype(np.float64)
+    want = (m * m).sum() / m.sum() / eng.n_ref
+    got = leaf_density(eng.gl, eng.w, eng.total_leaves)
+    assert got == pytest.approx(want, rel=1e-12)
+    assert eng.leaf_mode() is leaf
+    assert (got <= LEAF_DENSITY_MAX) is leaf
+
+
+def _walk_index(gl_q, q, idx, tile):
+    """The kernel's walk in numpy: for each query row and column range, a
+    cursor per tree advanced tile by tile, adding q·w for the members that
+    fall in the tile, trees in ascending order."""
+    nq, T = gl_q.shape
+    nw = idx.n_ref
+    offs, col, mw = idx.offs.numpy(), idx.col.numpy(), idx.w.numpy()
+    out = np.full((nq, nw), np.nan)
+    for i in range(nq):
+        for r in range(idx.n_ranges):
+            j0, j1 = r * idx.range_w, min((r + 1) * idx.range_w, nw)
+            cur = np.zeros(T, np.int64)
+            end = np.zeros(T, np.int64)
+            for t in range(T):
+                if q[i, t] != 0 and 0 <= gl_q[i, t] < idx.n_leaves:
+                    cur[t], end[t] = offs[gl_q[i, t], r:r + 2]
+            for a in range(j0, j1, tile):
+                row = np.zeros(min(tile, j1 - a))
+                for t in range(T):
+                    while cur[t] < end[t] and col[cur[t]] < a + row.size:
+                        assert col[cur[t]] >= a
+                        row[col[cur[t]] - a] += q[i, t] * mw[cur[t]]
+                        cur[t] += 1
+                out[i, a:a + row.size] = row
+            assert (cur == end).all()
+    return out
+
+
+@pytest.mark.parametrize("nq,nw,T,tile", [(5, 20_000, 4, 1024),
+                                          (9, 2100, 6, 128),
+                                          (3, 7, 3, 128)])
+def test_leaf_index_walk_gives_the_block(nq, nw, T, tile):
+    """The kernel's tile-by-tile walk over the index (in numpy) gives the
+    plain version's block, every element written once."""
+    gl_q, q, gl_w, w = _block_inputs(nq * T, nq, nw, T, n_leaf=6)
+    off = (np.arange(T) * 6).astype(np.int32)            # global leaf ids
+    gl_q, gl_w = gl_q + off, gl_w + off
+    w = w * (np.random.default_rng(1).random(w.shape) < 0.7)
+    idx = build_leaf_index(torch.as_tensor(gl_w), torch.as_tensor(w), 6 * T)
+    got = _walk_index(gl_q, q, idx, tile)
+    want = block_prox(*(torch.as_tensor(a) for a in (gl_q, q, gl_w, w)))
+    np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("T,want", [(100, (1024, 75_136)),
+                                    (1500, (1024, 209_536)),
+                                    (2000, (512, 224_768)),
+                                    (2300, (128, 228_992))])
+def test_leaf_plan(T, want):
+    """The widest tile from 1,024 columns down to 128 whose rows and
+    per-(row, tree) cursors fit the card's shared memory; past that the
+    launch is refused."""
+    assert leaf_plan(T, 232_448) == want
+    with pytest.raises(ValueError, match="shared memory"):
+        leaf_plan(T, 128 * 64 + T * 96 - 1)
 
 
 def test_block_prox_rejects_bad_inputs():
