@@ -29,7 +29,10 @@
    671 rows x 50,000 x 100 (the train-side row blocks are 671 rows), on
    the deep forest and on the GBT forest, in both forms (leaf collisions
    on the engine's leaf index, dense) with the same bits, each form timed,
-   and its share of the warm train-side steps;
+   and its share of the warm train-side steps; K2 also at the prefix
+   tier's shape (depth-4 leaves: the dense form) and the compressed
+   engine's (the OOS batch against its 70 prototype columns), K1 also on
+   the depth-4 truncated forest;
    K3 at the acceptance level-1 shape and K4 at the GBT root shape
    bit-exact on integer payloads, both bit for bit equal to the ordered
    oracle (``histogram_ordered``/``moments_ordered``) on integer and
@@ -38,16 +41,31 @@
    the trainer calls them (host node bounds) and with device node ids,
    with their device time, the device ops of one call, and the kernel mode
    the wrapper did not pick (same bits) timed beside the one it picked;
-7. prints one ``{"kernels": [...]}`` line (launches on the main and GBT
-   paths, errors, kernel / plain / library times and the least time the
-   card could take), the card's name and power limit, and as its last line
-   ``{"ok": true, "device": {...}}``.
+7. drives the proximity applications on the acceptance forest, counted
+   (K1/K2/K3/K4 launches a step; cold, and warm where a server repeats
+   the call): outlier scores (train side and OOS), prototypes (10 a
+   class, k=50), the compressed engine's OOS predict and top-k, the
+   nearest-prototype classifier, the depth-4 prefix tier (its OOS predict
+   launches no K1) and the truncated forest's routing, label propagation
+   (10% labelled, 50 iterations, online, the OOS projection), the
+   embedding (Lanczos over device products, Nyström transform), ``ih``
+   weights on the same forest, and imputation (10% NaN in 4 columns, 2
+   iterations of card refits, twice); then holds each against the port's
+   CPU engine on the same leaves (training-set outliers on 1,024 rows and
+   the embedding against the host CSR products; ``ih`` on 4 trees;
+   imputation against the CPU imputer at 5,000 rows).
+
+Last it prints one ``{"kernels": [...]}`` line (launches on the main, GBT
+and applications paths, errors, kernel / plain / library times and the
+least time the card could take), the card's name and power limit, and as
+its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It exits non-zero at once when torch finds no CUDA device or when the
-port's sources are not beside it.  About 3.5 minutes on one H100, a third
-of it the host numpy fits the card fits are held against.
+port's sources are not beside it.  About 8 minutes on one H100, most of
+it the host computations the card's results are held against.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -68,6 +86,14 @@ ATOL_OPS = 1e-8          # the reference's cross-backend engine contract
 ATOL_BLOCK = 1e-10       # K2 against its plain version (sums in other order)
 N_GBT, N_GBT_OOS, GBT_STAGES, GBT_DEPTH = 50_000, 5_000, 100, 6
 N_ET_TREES, N_REG_TREES = 10, 20
+# phase 7: the proximity applications
+PREFIX_DEPTH, N_PROTOS, PROTO_K = 4, 10, 50
+PROP_LABELED, PROP_ITERS = 0.1, 50
+N_EMBED_OOS = 2000
+IH_CHECK_TREES, IH_TIE_RTOL = 4, 1e-9
+IMPUTE_COLS, IMPUTE_FRAC, IMPUTE_ITERS, N_IMPUTE_HOST = 4, 0.1, 2, 5000
+MARGIN_TIE = 1e-9        # propagation labels may differ below this margin
+ATOL_EMBED = 1e-6        # embedding coordinates, after aligning signs
 TREE_FIELDS = ("feature", "threshold", "left", "right", "leaf_id", "value",
                "n_node_samples")
 
@@ -545,6 +571,11 @@ def main() -> int:
     k1_ms = k1_times[f"{N_TRAIN}x{N_TREES}"][0]
     k1_plain_ms = cuda_ms(torch, lambda: route_plain(X_dev, tables), 3)
 
+    # the depth-4 prefix of the acceptance forest (the prefix tier's
+    # forest): its own records, routed by K1
+    trunc = forest.truncated(PREFIX_DEPTH)
+    k1_case(f"truncated depth {PREFIX_DEPTH}", Xte_dev, trunc.route_tables_)
+
     rng = np.random.default_rng(1)
     Xd = rng.normal(size=(20_000, D))
     yd = rng.integers(0, N_CLASSES, size=20_000)
@@ -554,8 +585,10 @@ def main() -> int:
     k1_case("deep forest", Xd_dev, dt)
     deep_leaf = 20_000 / np.mean([t.n_leaves for t in deep.trees_])
     print(f"K1 bit-exact on the acceptance forest (M={tables.max_nodes}; "
-          f"also with NaN features), the deep forest (M={dt.max_nodes}, "
-          f"{deep_leaf:.2f} samples a leaf) and a GBT stage", flush=True)
+          f"also with NaN features), its depth-{PREFIX_DEPTH} prefix "
+          f"(M={trunc.route_tables_.max_nodes}), the deep forest "
+          f"(M={dt.max_nodes}, {deep_leaf:.2f} samples a leaf) and a GBT "
+          "stage", flush=True)
 
     # K2 in both forms on one engine's factors: the leaf-collision form on
     # its leaf index and the dense form, at the timed 512-row block and at
@@ -565,12 +598,11 @@ def main() -> int:
         eng.gl, eng.w, n_leaves=eng.total_leaves), 3)
     train_rows = max(1, eng_mod._BLOCK_BYTES // (8 * eng.n_ref))
 
-    def k2_case(name, e, nrows):
-        """Both forms of K2 on engine ``e``'s first ``nrows`` rows: the
-        leaf form within ATOL_BLOCK of the plain version and the same bits
-        on a second launch and in the dense form.  Returns (output, error,
-        leaf ms, dense ms)."""
-        gq, qq = e.gl[:nrows], e.q[:nrows]
+    def k2_case(name, e, gq, qq):
+        """Both forms of K2 for query factors ``gq``/``qq`` against engine
+        ``e``'s reference side: the leaf form within ATOL_BLOCK of the plain
+        version and the same bits on a second launch and in the dense form.
+        Returns (output, error, leaf ms, dense ms)."""
         ix = e.leaf_index()
         got = block_prox(gq, qq, e.gl, e.w, index=ix)
         err = max_err(got, block_prox_ref(gq, qq, e.gl, e.w))
@@ -589,11 +621,23 @@ def main() -> int:
     dk = ForestKernel(kernel_method="gap", device="cuda")
     dk.forest = deep
     dk.build_kernel_cache()
-    k2_cases = {  # name: (engine, rows)
-        f"acceptance {BLOCK_ROWS}": (eng, BLOCK_ROWS),
-        f"acceptance {train_rows}": (eng, train_rows),
-        f"deep forest {BLOCK_ROWS}": (dk.engine, BLOCK_ROWS),
-        f"GBT forest {BLOCK_ROWS}": (ge, BLOCK_ROWS)}
+    # the prefix tier (depth-4 leaves: the dense form) and the
+    # prototype-compressed engine (the OOS batch against its 70 columns)
+    pe6 = fk.prefix_engine(PREFIX_DEPTH)
+    ce6 = fk.compress(n_prototypes=N_PROTOS, k=PROTO_K)
+    qs_te = eng.query_state(Xte)
+    k2_cases = {  # name: (engine, query rows' gl, q)
+        f"acceptance {BLOCK_ROWS}": (eng, eng.gl[:BLOCK_ROWS],
+                                     eng.q[:BLOCK_ROWS]),
+        f"acceptance {train_rows}": (eng, eng.gl[:train_rows],
+                                     eng.q[:train_rows]),
+        f"deep forest {BLOCK_ROWS}": (dk.engine, dk.engine.gl[:BLOCK_ROWS],
+                                      dk.engine.q[:BLOCK_ROWS]),
+        f"GBT forest {BLOCK_ROWS}": (ge, ge.gl[:BLOCK_ROWS],
+                                     ge.q[:BLOCK_ROWS]),
+        f"prefix depth {PREFIX_DEPTH} {BLOCK_ROWS}": (
+            pe6, pe6.gl[:BLOCK_ROWS], pe6.q[:BLOCK_ROWS]),
+        f"compressed {N_OOS}x{ce6.n_ref}": (ce6, qs_te.gl, qs_te.q)}
     k2_res = {k: k2_case(k, *v) for k, v in k2_cases.items()}
     k2_out, _, k2_ms, k2_dense_ms = k2_res[f"acceptance {BLOCK_ROWS}"]
     k2_tr_ms = k2_res[f"acceptance {train_rows}"][2]
@@ -602,13 +646,13 @@ def main() -> int:
     k2_plain_ms = cuda_ms(
         torch, lambda: block_prox_ref(gl_q, q, eng.gl, eng.w), 2)
     forms = {k: "leaf" if e.leaf_mode() else "dense"
-             for k, (e, _) in k2_cases.items()}
+             for k, (e, _, _) in k2_cases.items()}
     print("K2 leaf form vs dense form (ms, same bits; the engine's leaf "
           "density and the form it picks in brackets): " + ", ".join(
               f"{k} {r[2]:.4f} vs {r[3]:.4f} ({e._leaf_density:.5f}: "
-              f"{forms[k]})" for (k, r), (e, _) in zip(k2_res.items(),
-                                                       k2_cases.values())),
-          flush=True)
+              f"{forms[k]})" for (k, r), (e, _, _) in zip(
+                  k2_res.items(), k2_cases.values())), flush=True)
+    check(not pe6.leaf_mode(), "the prefix engine takes the leaf form")
     print(f"K2 leaf index of the acceptance engine: {index.nbytes} bytes "
           f"({index.col.numel()} members, {index.offs.shape[0]} leaves x "
           f"{index.n_ranges} column ranges of {index.range_w}), built in "
@@ -792,6 +836,349 @@ def main() -> int:
           f"vs plain {max_err(k4_out, k4_plain_out):.3e}, same bits twice",
           flush=True)
 
+    # ---- phase 7: the proximity applications on the card, counted ----
+    from repro_torch.applications.outliers import train_outlier_stats
+    from repro_torch.applications.prototypes import (
+        CompressedProximityEngine, NearestPrototypeClassifier)
+    from repro_torch.core.context import EnsembleContext
+    from repro_torch.core.engine import ProximityEngine, prediction_margin
+    from repro_torch.core.factorization import kernel_matvec_operator
+    from repro_torch.core.spectral import operator_eigs
+    from scipy.sparse.linalg import LinearOperator
+    from repro_torch.core.weights import InstanceHardness, get_assignment
+    from repro_torch.forest.trees import route_tree
+    t7 = time.perf_counter()
+
+    def host_kernel(k, factors=None):
+        """The port's CPU kernel on card kernel ``k``'s forest and training
+        leaves (its plain path), optionally with given weights."""
+        hf = dataclasses.replace(k.forest, device="cpu", tree_arrays_=None,
+                                 leaf_values_=None, route_tables_=None,
+                                 leaf_table_=None)
+        hf._cache_tables()
+        hk = ForestKernel(kernel_method=k.kernel_method, n_trees=k.n_trees,
+                          device="cpu")
+        hk.forest = hf
+        hk.ctx = EnsembleContext.from_forest(hf, leaves=k.ctx.leaves.cpu())
+        hk.assignment = get_assignment(hk.kernel_method, hk.ctx)
+        hk.engine = ProximityEngine(hk.ctx, hk.assignment, forest=hf,
+                                    factors=factors)
+        hk.Q_, hk.W_ = hk.engine.Q, hk.engine.W
+        return hk
+
+    def cold(e=eng):
+        """Empty the OOS query-state cache, so the next call routes its
+        batch as a new one would be."""
+        with e._qs_lock:
+            e._oos_cache.clear()
+
+    def warm_s(fn):
+        times = []
+        for _ in range(WARM_REPS):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return float(np.median(times))
+
+    app_warm = {}
+    earlier = set(per_step)
+    reset_counts()
+    # outliers: the train side (K2 row blocks bucketed by class), then the
+    # OOS batch (routed by K1) against the cached training statistics
+    o_raw = counted("outlier_scores raw", lambda: fk.outlier_scores(
+        normalize=False))
+    o_norm = counted("outlier_scores", fk.outlier_scores)
+    counted("train_outlier_stats", lambda: train_outlier_stats(eng, ytr))
+    cold()
+    o_oos = counted("oos_outlier_scores", lambda: fk.oos_outlier_scores(Xte))
+    app_warm["oos_outlier_scores"] = warm_s(
+        lambda: fk.oos_outlier_scores(Xte))
+    # prototypes, the compressed engine and the nearest-prototype classifier
+    protos, _ = counted("prototypes", lambda: fk.prototypes(
+        n_prototypes=N_PROTOS, k=PROTO_K))
+    ce = counted("compress", lambda: fk.compress(n_prototypes=N_PROTOS,
+                                                 k=PROTO_K))
+    ce_pred = counted("compressed predict_oos", lambda: ce.predict(
+        ce.prototype_labels_, N_CLASSES, X=Xte))
+    app_warm["compressed predict_oos"] = warm_s(lambda: ce.predict(
+        ce.prototype_labels_, N_CLASSES, X=Xte))
+    ce_idx, ce_val = counted("compressed topk_oos", lambda: ce.topk(
+        k=K, X=Xte))
+    app_warm["compressed topk_oos"] = warm_s(lambda: ce.topk(k=K, X=Xte))
+    clf = NearestPrototypeClassifier(
+        n_prototypes=N_PROTOS, k=PROTO_K,
+        prototype_indices_=ce.prototype_indices_,
+        prototype_labels_=ce.prototype_labels_, engine_=eng)
+    clf_pred = counted("prototype classifier predict_oos",
+                       lambda: clf.predict(Xte))
+    app_warm["prototype classifier predict_oos"] = warm_s(
+        lambda: clf.predict(Xte))
+    # the prefix tier: contracted from the engine, its OOS batch the
+    # engine's routed state (no K1 launch)
+    pe = counted("prefix_engine", lambda: fk.prefix_engine(PREFIX_DEPTH))
+    eng.query_state(Xte)
+    pe_scores = counted("prefix predict_oos", lambda: pe.predict(
+        ytr, N_CLASSES, X=Xte))
+    check(per_step["prefix predict_oos"].split("/")[0] == "0",
+          "the prefix tier's OOS predict launched K1")
+    app_warm["prefix predict_oos"] = warm_s(lambda: pe.predict(
+        ytr, N_CLASSES, X=Xte))
+    pe_margin = prediction_margin(pe_scores)
+    trunc_leaves = counted("truncated forest route_oos",
+                           lambda: trunc.apply(Xte))
+    # label propagation: 10% labelled, the online state and the OOS batch
+    labeled = np.random.default_rng(11).random(N_TRAIN) < PROP_LABELED
+    p_lab, p_sc = counted("propagate_labels", lambda: fk.propagate_labels(
+        labeled, n_iter=PROP_ITERS))
+    onl = counted("propagate online", lambda: fk.propagate_labels(
+        labeled, n_iter=PROP_ITERS, online=True))
+    cold()
+    pb_lab, pb_sc = counted("propagate partial_fit_oos",
+                            lambda: onl.partial_fit(Xte))
+    app_warm["propagate partial_fit_oos"] = warm_s(
+        lambda: onl.partial_fit(Xte))
+    # embedding: gap is asymmetric, so Lanczos over device products
+    emb = counted("embed", lambda: fk.embed(n_components=2))
+    X_emb = Xte[:N_EMBED_OOS]
+    cold()
+    z_oos = counted("embed transform_oos", lambda: emb.transform(X_emb))
+    app_warm["embed transform_oos"] = warm_s(lambda: emb.transform(X_emb))
+    # instance-hardness weights on the same forest (no refit)
+    ik = ForestKernel(model_type="rf", kernel_method="ih", n_trees=N_TREES,
+                      n_bins=64, seed=0, device="cuda")
+    ik.forest = fk.forest
+    counted("ih build_kernel_cache", ik.build_kernel_cache)
+    counted("ih weights", lambda: ik.assignment.reference_weights(
+        ik.ctx.leaves))
+    ih_pred = counted("ih predict_oos", lambda: ik.engine.predict(
+        ytr, N_CLASSES, X=Xte))
+    ih_idx, ih_val = counted("ih topk_oos", lambda: ik.topk(k=K, X=Xq))
+    # imputation: 10% MCAR NaN in 4 of the 20 columns, drawn among the 10
+    # informative ones (a pure-noise column has nothing for proximities to
+    # recover); every refit grows its forest on the card (K3)
+    rng7 = np.random.default_rng(12)
+    imp_cols = np.sort(rng7.choice(10, IMPUTE_COLS, replace=False))
+    miss = np.zeros_like(Xtr, dtype=bool)
+    miss[:, imp_cols] = rng7.random((N_TRAIN, IMPUTE_COLS)) < IMPUTE_FRAC
+    Xmiss = np.where(miss, np.nan, Xtr)
+    imp_kw = dict(model_type="rf", kernel_method="gap", n_trees=N_TREES,
+                  n_bins=64, seed=0)
+    imp = counted("impute", lambda: ForestKernel(
+        device="cuda", **imp_kw).impute(Xmiss, ytr, n_iter=IMPUTE_ITERS))
+    imp2 = counted("impute again", lambda: ForestKernel(
+        device="cuda", **imp_kw).impute(Xmiss, ytr, n_iter=IMPUTE_ITERS))
+    Xm_small = Xmiss[:N_IMPUTE_HOST]
+    imp_small = counted(f"impute {N_IMPUTE_HOST}", lambda: ForestKernel(
+        device="cuda", **imp_kw).impute(Xm_small, ytr[:N_IMPUTE_HOST],
+                                        n_iter=IMPUTE_ITERS))
+    app_launches = read_counts()
+    app_steps = [k for k in per_step if k not in earlier]
+    print("applications path (s cold, s warm where a server repeats the "
+          "call, K1/K2/K3/K4 launches): " + ", ".join(
+              f"{k} {wall[k]:.4f}"
+              + (f" warm {app_warm[k]:.4f}" if k in app_warm else "")
+              + f" ({per_step[k]})" for k in app_steps)
+          + f"; launches {app_launches}", flush=True)
+    for name in ("leaf_route", "block_prox", "histogram"):
+        check(app_launches[name] > 0,
+              f"{name} was not launched on the applications path")
+    for name in ("oos_outlier_scores", "propagate partial_fit_oos",
+                 "embed transform_oos", "truncated forest route_oos"):
+        check(int(per_step[name].split("/")[0]) > 0,
+              f"{name} did not route through K1")
+    for name in ("impute", "impute again"):
+        check(int(per_step[name].split("/")[2]) > 0,
+              f"{name} did not fit on the card through K3")
+
+    # ---- phase 7 checks: each application against the port's CPU engine
+    # on the same leaves ----
+    t_host = time.perf_counter()
+    host_s = {}
+
+    def hosted(name, fn):
+        """A host computation of the checks, timed by name."""
+        t = time.perf_counter()
+        out = fn()
+        host_s[name] = host_s.get(name, 0.0) + time.perf_counter() - t
+        return out
+    host = hosted("engine", lambda: host_kernel(fk))
+    he = host.engine
+    aerrs = {}
+
+    def rel_err(a, b):
+        a = a.detach().cpu().numpy() if hasattr(a, "detach") else a
+        b = b.detach().cpu().numpy() if hasattr(b, "detach") else b
+        return float((np.abs(a - b) / np.maximum(np.abs(b), 1e-300)).max())
+    # outliers: the host CSR's class-bucketed squared row sums on phase 2's
+    # CHECK_ROWS training rows (all 50,000 take the host minutes) and on
+    # the OOS batch; the medians and MADs numpy's, of the card's raw scores
+    tiny = np.finfo(np.float64).tiny
+    counts = np.bincount(ytr, minlength=N_CLASSES).astype(np.float64)
+
+    def raw_of(sq, cls):
+        own = sq[np.arange(len(cls)), cls]
+        with np.errstate(divide="ignore", over="ignore"):
+            return np.minimum(counts[cls] / np.maximum(own, tiny),
+                              float(N_TRAIN) ** 2)
+    h_raw = hosted("outliers", lambda: raw_of(host_srs(Q[chk]), ytr[chk]))
+    aerrs[f"outlier raw (relative), {CHECK_ROWS} rows"] = (
+        rel_err(o_raw[chk_dev], h_raw), 1e-10)
+    raw_np = o_raw.cpu().numpy()
+    med, mad = np.zeros(N_CLASSES), np.full(N_CLASSES, tiny)
+    h_norm = np.empty(N_TRAIN)
+    for c in range(N_CLASSES):
+        m = ytr == c
+        med[c] = np.median(raw_np[m])
+        mad[c] = max(np.median(np.abs(raw_np[m] - med[c])), tiny)
+        h_norm[m] = (raw_np[m] - med[c]) / mad[c]
+    aerrs["outlier normalized"] = (max_err(o_norm, h_norm), ATOL_OPS)
+    sq_te = hosted("outliers", lambda: host_srs(Qte))
+    cls_te = (sq_te / np.maximum(counts, 1.0)[None, :]).argmax(axis=1)
+    aerrs["oos outlier"] = (max_err(o_oos, (raw_of(sq_te, cls_te)
+                                            - med[cls_te]) / mad[cls_te]),
+                            ATOL_OPS)
+    h_protos, _ = hosted("prototypes", lambda: host.prototypes(
+        n_prototypes=N_PROTOS, k=PROTO_K))
+    for c in h_protos:
+        check(np.array_equal(protos[c], h_protos[c]),
+              f"class {c} prototypes differ from the host's")
+        check(np.array_equal(ce.prototype_indices_[ce.prototype_labels_ == c],
+                             h_protos[c]), "compress picked other prototypes")
+    _, tie_val = fk.topk(k=PROTO_K + 1)
+    tie_val = tie_val.cpu().numpy()
+    proto_ties = int(((tie_val[:, PROTO_K - 1] == tie_val[:, PROTO_K])
+                      & (tie_val[:, PROTO_K] > 0)).sum())
+    hce = CompressedProximityEngine(he, ce.prototype_indices_,
+                                    labels=ce.prototype_labels_)
+    aerrs["compressed predict_oos"] = (max_err(ce_pred, hce.predict(
+        ce.prototype_labels_, N_CLASSES, X=Xte)), ATOL_OPS)
+    h_ci, h_cv = hce.topk(k=K, X=Xte)
+    aerrs["compressed topk_oos values"] = (max_err(ce_val, h_cv), ATOL_OPS)
+    ce_idx_same = float((ce_idx.cpu() == h_ci).float().mean())
+    hclf = NearestPrototypeClassifier(
+        prototype_indices_=ce.prototype_indices_,
+        prototype_labels_=ce.prototype_labels_, engine_=he)
+    aerrs["prototype decision_function"] = (max_err(
+        clf.decision_function(Xte), hclf.decision_function(Xte)), ATOL_OPS)
+    check(torch.equal(clf_pred.cpu(), hclf.predict(Xte)),
+          "nearest-prototype predictions differ from the host's")
+    hpe = hosted("prefix", lambda: host.prefix_engine(PREFIX_DEPTH))
+    check(torch.equal(pe.gl.cpu(), hpe.gl), "prefix codes differ")
+    aerrs["prefix predict_oos"] = (max_err(pe_scores, hpe.predict(
+        ytr, N_CLASSES, X=Xte)), ATOL_OPS)
+    aerrs["prefix margin"] = (max_err(pe_margin, prediction_margin(
+        hpe.predict(ytr, N_CLASSES, X=Xte))), ATOL_OPS)
+    check(np.array_equal(trunc_leaves.cpu().numpy(), np.stack(
+        [route_tree(t, Xte) for t in trunc.trees_], axis=1)),
+        "K1 on the truncated forest != route_tree")
+    h_onl = hosted("propagation", lambda: host.propagate_labels(
+        labeled, n_iter=PROP_ITERS, online=True))
+
+    def label_check(name, got_lab, got_sc, want_sc):
+        """Labels equal the host's except where the host's top-two score
+        margin is below MARGIN_TIE; returns the excepted rows."""
+        srt = np.sort(want_sc.cpu().numpy(), axis=1)
+        close = srt[:, -1] - srt[:, -2] < MARGIN_TIE
+        diff = got_lab.cpu().numpy() != want_sc.argmax(1).numpy()
+        check(not (diff & ~close).any(), f"{name} labels differ")
+        aerrs[f"{name} scores"] = (max_err(got_sc, want_sc), ATOL_OPS)
+        return int(close.sum())
+    prop_except = label_check("propagate", p_lab, p_sc, h_onl.scores_)
+    hb_lab, hb_sc = hosted("propagation", lambda: h_onl.partial_fit(Xte))
+    prop_oos_except = label_check("propagate oos", pb_lab, pb_sc, hb_sc)
+    # the embedding's host reference: the same Lanczos (seed, v0) over the
+    # host CSR products P v = Q (Wᵀ v) (the CPU engine's segment sums take
+    # ~0.5 s a product at this size, minutes for the solver)
+    def host_embedding():
+        op = kernel_matvec_operator(he.Q, he.W)
+        sym = LinearOperator(op.shape, dtype=np.float64, matvec=lambda v:
+                             0.5 * (op.matvec(v) + op.rmatvec(v)))
+        vals, vecs = operator_eigs(sym, k=2, seed=0)
+        vals = np.maximum(vals, 0.0)
+        nys = vecs / np.sqrt(vals)[None, :]
+        return vals, vecs * np.sqrt(vals)[None, :], np.asarray(
+            host.query_map(X_emb) @ (he.W.T @ nys))
+    h_vals, h_coords, h_z = hosted("embedding", host_embedding)
+    eig_rel = float(np.abs(emb.eigvals_ / h_vals - 1).max())
+    check(eig_rel <= 1e-8, f"embedding eigenvalues rtol {eig_rel} > 1e-8")
+    sign = np.sign((emb.embedding_ * h_coords).sum(0))
+    aerrs["embedding coordinates"] = (max_err(
+        emb.embedding_ * sign, h_coords), ATOL_EMBED)
+    aerrs["embedding transform_oos"] = (max_err(
+        z_oos.cpu().numpy() * sign, h_z), ATOL_EMBED)
+    # ih: the first trees' weights against the host rule; a row may pick
+    # another neighbour where its 5th and 6th nearest squared distances
+    # are within IH_TIE_RTOL
+    hctx = host.ctx
+    ih_w = ik.engine.w[:, :IH_CHECK_TREES].cpu()
+    h_w = hosted("ih", lambda: InstanceHardness(hctx).reference_weights(
+        hctx.leaves[:, :IH_CHECK_TREES]))
+    ref_rows = torch.as_tensor(np.random.default_rng(0).choice(
+        N_TRAIN, min(InstanceHardness.max_ref, N_TRAIN), replace=False),
+        device=dev)
+    near = torch.zeros((N_TRAIN, IH_CHECK_TREES), dtype=torch.bool)
+    for t in range(IH_CHECK_TREES):
+        f = torch.as_tensor(hctx.tree_features[t], device=dev)
+        A = X_dev[:, f]
+        B = A[ref_rows]
+        d2 = ((A * A).sum(1)[:, None] - (2 * A) @ B.T
+              + (B * B).sum(1)[None, :])
+        d = torch.topk(d2, InstanceHardness.k + 1, dim=1,
+                       largest=False).values
+        del d2
+        k5, k6 = d[:, InstanceHardness.k - 1], d[:, InstanceHardness.k]
+        near[:, t] = ((k6 - k5) <= IH_TIE_RTOL * k6.abs()).cpu()
+    ih_diff = ih_w != h_w
+    check(not (ih_diff & ~near).any(),
+          "ih weights differ from the host's away from a near-tie")
+    ih_near = int(near.sum())
+    hik = hosted("ih", lambda: host_kernel(ik, factors=(
+        ik.engine.q.cpu(), ik.engine.w.cpu())))
+    aerrs["ih predict_oos"] = (max_err(ih_pred, hik.engine.predict(
+        ytr, N_CLASSES, X=Xte)), ATOL_OPS)
+    aerrs["ih topk_oos values"] = (max_err(ih_val, hik.topk(k=K, X=Xq)[1]),
+                                   ATOL_OPS)
+    # imputation: observed entries untouched, better than the median fill,
+    # and the card against the CPU imputer (host trainer) at 5,000 rows
+    Xi = imp.X_imputed_
+    check(np.array_equal(Xi[~miss], Xtr[~miss]), "observed entries changed")
+    check(np.isfinite(Xi).all(), "imputed matrix not finite")
+    err_imp = float(np.abs(Xi[miss] - Xtr[miss]).mean())
+    med = np.nanmedian(Xmiss, axis=0)
+    err_med = float(np.abs(np.broadcast_to(med, Xtr.shape)[miss]
+                           - Xtr[miss]).mean())
+    check(err_imp < 0.8 * err_med, f"imputation error {err_imp} not below "
+          f"0.8 x the median fill's {err_med}")
+    run_diff = float(np.abs(imp2.X_imputed_ - Xi).max())
+    himp = hosted("imputation", lambda: ForestKernel(
+        device="cpu", **imp_kw).impute(Xm_small, ytr[:N_IMPUTE_HOST],
+                                       n_iter=IMPUTE_ITERS))
+    aerrs[f"impute {N_IMPUTE_HOST} vs host"] = (max_err(
+        imp_small.X_imputed_, himp.X_imputed_), ATOL_OPS)
+    aerrs[f"impute {N_IMPUTE_HOST} history"] = (max_err(
+        np.asarray(imp_small.history_), np.asarray(himp.history_)), ATOL_OPS)
+    for name, (e, lim) in aerrs.items():
+        print(f"  {name}: max err {e:.3e} (limit {lim:g})")
+        check(e <= lim, f"{name} error {e} > {lim}")
+    mem_full, mem_ce = eng.memory_bytes(), ce.memory_bytes()
+    print(f"applications vs host: prototype ids equal ({ce.n_ref} columns; "
+          f"{proto_ties} of {N_TRAIN} rows tie at the {PROTO_K}th place), "
+          f"compressed topk_oos indices equal the host's in "
+          f"{ce_idx_same:.6f} of places, nearest-prototype predictions "
+          f"equal; propagation labels equal except {prop_except} train / "
+          f"{prop_oos_except} OOS rows with a top-two margin below "
+          f"{MARGIN_TIE:g}; embedding eigenvalues {emb.eigvals_.tolist()} "
+          f"(rtol vs host {eig_rel:.2e}); ih weights on {IH_CHECK_TREES} "
+          f"trees: {int(ih_diff.sum())} differ, {ih_near} (row, tree) near "
+          f"ties; imputation error {err_imp:.4f} vs median fill "
+          f"{err_med:.4f}, two card runs differ by at most {run_diff:.3e}; "
+          f"host checks {time.perf_counter() - t_host:.1f} s (" + ", ".join(
+              f"{k} {v:.1f}" for k, v in host_s.items()) + ")", flush=True)
+    print(f"compressed engine memory {mem_ce} vs full engine {mem_full}",
+          flush=True)
+    print(f"phase 7 wall: {time.perf_counter() - t7:.1f} s", flush=True)
+
     # ---- bounds, from this run's shapes and data ----
     # K1 reads X once, each real node's 16-byte record once (not the
     # padding up to M) and writes the (n, T) int32 leaves
@@ -832,7 +1219,7 @@ def main() -> int:
     k4_by = max(k4_terms, key=k4_terms.get)
 
     def total(name):
-        return launches[name] + gbt_launches[name]
+        return launches[name] + gbt_launches[name] + app_launches[name]
     kernels = [
         {"name": "leaf_route", "route": "cuda",
          "source": "src/repro_torch/kernels/leaf_route/csrc/leaf_route.cu",
@@ -891,8 +1278,9 @@ def main() -> int:
           f"call {k4_ops}; {k4_mode} mode (the other mode here: "
           f"{k4_alt_ms:.3f} ms a call, {k4_alt_dev:.3f} ms on the device, "
           f"same bits)")
-    print("launches (main path + GBT path): " + ", ".join(
-        f"{k} {launches[k]} + {gbt_launches[k]}" for k in wrappers))
+    print("launches (main path + GBT path + applications path): " +
+          ", ".join(f"{k} {launches[k]} + {gbt_launches[k]} + "
+                    f"{app_launches[k]}" for k in wrappers))
     print(f"wall: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -15,7 +15,12 @@ Three stages:
 ``fit`` = fit_forest + build_kernel_cache.  ``device="cuda"`` (the default)
 raises when no card is present; ``device="cpu"`` runs the same path through
 the kernels' plain versions.  Covered here: ``model_type`` "rf", "et" and
-"gbt", ``kernel_method`` "original", "kerf", "oob", "gap" and "boosted".
+"gbt", ``kernel_method`` "original", "kerf", "oob", "gap", "ih" and
+"boosted", and the proximity applications (imputation, outlier scores,
+prototypes and compression, label propagation, embedding) and the
+depth-prefix engine.  Snapshots (``save``/``load``) and serving
+(``serve``/``serve_tiered``) come with the serving slice and raise until
+then.
 """
 from __future__ import annotations
 
@@ -39,12 +44,15 @@ __all__ = ["ForestKernel"]
 
 _MODEL_TYPES = {"rf": RandomForest, "et": ExtraTrees,
                 "gbt": GradientBoostedTrees}
+_LATER = ("ForestKernel.{} is not ported yet: it comes with the serving "
+          "slice (snapshots need the port's obs/ metrics, serving its "
+          "serve/ package)")
 
 
 @dataclasses.dataclass
 class ForestKernel:
     model_type: str = "rf"           # 'rf' | 'et' | 'gbt'
-    kernel_method: str = "gap"       # 'original'|'kerf'|'oob'|'gap'|'boosted'
+    kernel_method: str = "gap"  # 'original'|'kerf'|'oob'|'gap'|'ih'|'boosted'
     task: str = "classification"
     n_trees: int = 100
     max_depth: int = 64
@@ -136,6 +144,106 @@ class ForestKernel:
     def row_sums(self, X=None) -> torch.Tensor:
         """Kernel row sums Σ_j P(i,j) (proximity-graph degrees)."""
         return self.engine.row_sums(X=X)
+
+    # ---------------- snapshots and serving (a later slice) ----------------
+    def save(self, path) -> dict:
+        """Not ported yet: the snapshot writer needs the port's ``obs/``
+        metrics, which come with the serving slice."""
+        raise NotImplementedError(_LATER.format("save"))
+
+    @classmethod
+    def load(cls, path, **kw) -> "ForestKernel":
+        """Not ported yet (see :meth:`save`)."""
+        raise NotImplementedError(_LATER.format("load"))
+
+    def serve(self, *a, **kw):
+        """Not ported yet: ``ProximityServer`` comes with the serving
+        slice."""
+        raise NotImplementedError(_LATER.format("serve"))
+
+    def serve_tiered(self, *a, **kw):
+        """Not ported yet: ``TieredProximityServer`` comes with the serving
+        slice."""
+        raise NotImplementedError(_LATER.format("serve_tiered"))
+
+    # ---------------- proximity applications ----------------
+    def _config_kwargs(self) -> dict:
+        """The constructor config (for subsystems that refit internally)."""
+        return {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self)
+                if f.name not in ("forest", "ctx", "assignment", "engine",
+                                  "Q_", "W_")}
+
+    def impute(self, X: np.ndarray, y: np.ndarray, n_iter: int = 5,
+               categorical=(), tol: float = 1e-3):
+        """Iterative proximity-weighted imputation of NaN entries in X.
+
+        Uses this kernel's config, ``device`` included, for the
+        per-iteration refits (callable on an unfitted ForestKernel).
+        Returns the fitted ProximityImputer — the filled matrix is
+        ``.X_imputed_``, convergence in ``.history_``.
+        """
+        from ..applications.imputation import ProximityImputer
+        imp = ProximityImputer(n_iter=n_iter, categorical=categorical,
+                               tol=tol, kernel_kwargs=self._config_kwargs())
+        imp.fit_transform(X, y)
+        return imp
+
+    def outlier_scores(self, normalize: bool = True,
+                       block: int = 4096) -> torch.Tensor:
+        """Within-class outlier scores n_c / Σ_{j∈c} P(i,j)², median/MAD
+        normalized per class."""
+        from ..applications.outliers import outlier_scores
+        return outlier_scores(self.engine, self.ctx.y, normalize=normalize,
+                              block=block)
+
+    def oos_outlier_scores(self, X, y_query=None, normalize: bool = True,
+                           block: int = 4096) -> torch.Tensor:
+        """Out-of-sample outlier scores against cached per-class *training*
+        statistics (see ``applications.outliers.oos_outlier_scores``)."""
+        from ..applications.outliers import oos_outlier_scores
+        return oos_outlier_scores(self.engine, self.ctx.y, X,
+                                  y_query=y_query, normalize=normalize,
+                                  block=block)
+
+    def compress(self, n_prototypes: int = 10, k: int = 50):
+        """Prototype-compressed engine (k·C reference columns instead of N)
+        for low-memory serving; see ``applications.prototypes.compress``."""
+        from ..applications.prototypes import compress
+        return compress(self.engine, self.ctx.y, n_prototypes=n_prototypes,
+                        k=k)
+
+    def prefix_engine(self, depth: int):
+        """Depth-``depth`` prefix-factorization engine (DiNo/RanBu tier):
+        proximities of the depth-truncated forest, contracted from this
+        kernel's fitted factors — no refit, and OOS batches reuse the full
+        engine's routed states."""
+        from .engine import PrefixProximityEngine
+        return PrefixProximityEngine(self.engine, depth)
+
+    def prototypes(self, n_prototypes: int = 3, k: int = 50):
+        """Greedy tree-space prototypes per class: (prototypes, coverage)."""
+        from ..applications.prototypes import select_prototypes
+        return select_prototypes(self.engine, self.ctx.y,
+                                 n_prototypes=n_prototypes, k=k)
+
+    def propagate_labels(self, labeled, y=None, alpha: float = 0.8,
+                         n_iter: int = 50, tol: float = 1e-5,
+                         online: bool = False):
+        """Semi-supervised label propagation: (labels, class scores), or an
+        ``OnlineLabelPropagation`` serving state when ``online=True``."""
+        from ..applications.propagate import propagate_labels
+        yy = self.ctx.y if y is None else y
+        return propagate_labels(self.engine, yy, labeled, alpha=alpha,
+                                n_iter=n_iter, tol=tol, online=online)
+
+    def embed(self, n_components: int = 2, method: str = "auto",
+              seed: int = 0):
+        """Proximity-MDS embedding; returns the fitted ProximityEmbedding
+        (training coords in ``.embedding_``, OOS via ``.transform(X)``)."""
+        from ..applications.embed import ProximityEmbedding
+        return ProximityEmbedding(n_components=n_components, method=method,
+                                  seed=seed).fit(self.engine)
 
     # ---------------- accounting ----------------
     def memory_bytes(self) -> dict:

@@ -2,7 +2,8 @@
 
 Bundles everything the SWLC weight assignments need: the routed leaf codes
 of the training set, global leaf indexing, and the auxiliary statistics θ
-(leaf masses, in-bag multiplicities, OOB indicators, per-tree weights).
+(leaf masses, in-bag multiplicities, OOB indicators, per-tree weights,
+per-tree split-feature sets).
 Leaf codes and θ live on the device; the per-tree leaf counts and offsets
 stay on the host as well, where the CSR build reads them.
 """
@@ -36,6 +37,7 @@ class EnsembleContext:
     tree_weights: torch.Tensor           # (T,) float64
     y: Optional[np.ndarray] = None       # training labels (host)
     X: Optional[np.ndarray] = None       # training features (host)
+    tree_features: Optional[list] = None  # per-tree split-feature sets (host)
 
     @property
     def n_trees(self) -> int:
@@ -91,9 +93,11 @@ class EnsembleContext:
         tw = forest.tree_weights_
         tw = torch.ones(T, dtype=torch.float64, device=dev) if tw is None \
             else torch.as_tensor(tw, dtype=torch.float64, device=dev)
+        tree_features = [np.unique(t.feature[t.feature >= 0])
+                         for t in forest.trees_]
         return cls(
             leaves=leaves, leaf_offset=np.asarray(ta.leaf_offset),
             n_leaves=np.asarray(ta.n_leaves), total_leaves=L, n_train=n,
             leaf_mass=leaf_mass, leaf_mass_inbag=leaf_mass_inbag,
             inbag=inbag_d, oob=oob, oob_count=oob_count, tree_weights=tw,
-            y=y, X=X)
+            y=y, X=X, tree_features=tree_features)

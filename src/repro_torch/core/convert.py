@@ -7,7 +7,9 @@ arrays the reference's snapshot writer stores (``repro/core/snapshot.py``):
 manifest's ``base_score`` for a gradient-boosted kernel.  The dict an
 ``np.load`` of a v2 snapshot returns works as input.  The training set is
 not routed again and the SWLC factors are recomputed on the device from the
-saved leaves, so the result computes the same kernel as the source.
+saved leaves (for ``kernel_method="ih"`` from the saved ``X``, ``y`` and the
+trees' split features too), so the result computes the same kernel as the
+source.
 Checksum validation and a snapshot writer come in a later slice.
 """
 from __future__ import annotations

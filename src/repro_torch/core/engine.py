@@ -10,17 +10,21 @@ the hot paths need:
 - an LRU of out-of-sample query states, so repeated ``predict(X=...)``
   calls on one batch never re-route.
 
-Products ``P V`` run as device segment sums (``core.torch_ops``); dense
-blocks, top-k and squared row sums run through the ``block_prox`` kernel,
-which a CUDA engine whose leaves are small feeds its reference side grouped
-by leaf (``leaf_index``, built on the device at the first such call); with
-big leaves it runs the kernel's dense form.
+Products ``P V = Q (Wᵀ V)`` run as device segment sums
+(``core.torch_ops``): the reference-side bucket table ``S = Wᵀ V`` (LRU-
+cached for narrow ``V``, so a serving loop that applies the same labels
+every tick pays only the query-side gather) and the query-side gather.
+Dense blocks, top-k and squared row sums run through the ``block_prox``
+kernel, which a CUDA engine whose leaves are small feeds its reference
+side grouped by leaf (``leaf_index``, built on the device at the first
+such call); with big leaves it runs the kernel's dense form.
 On a CPU engine the same calls take the kernels' plain versions, and large
 train-side top-k and squared row sums take the host CSR factors instead.
 Results are tensors on the engine's device.
 
-Not in this slice: the reference bucket-table LRU, the memory budget and
-``PrefixProximityEngine`` (serving and out-of-core slices).
+``PrefixProximityEngine`` is the depth-prefix tier: the engine of the
+depth-truncated forest, contracted from a fitted parent engine without
+routing again.  Not in this slice: the memory budget (out-of-core slice).
 """
 from __future__ import annotations
 
@@ -38,15 +42,25 @@ from ..kernels.block_prox.ops import (LEAF_DENSITY_MAX, LeafIndex,
                                       block_prox, build_leaf_index,
                                       leaf_density)
 from . import torch_ops
-from .factorization import full_kernel, topk_neighbors
+from .context import EnsembleContext
+from .factorization import (full_kernel, prefix_leaf_contraction,
+                            topk_neighbors)
 from .leafmap import build_leaf_map, sparse_bytes
+from .weights import get_assignment
 
-__all__ = ["ProximityEngine", "QueryState"]
+__all__ = ["ProximityEngine", "PrefixProximityEngine", "QueryState",
+           "prediction_margin"]
 
 # Dense blocks are computed this many output bytes at a time by the ops that
 # reduce them (top-k, squared row sums); the kernel itself holds no
 # intermediate beyond its output.
 _BLOCK_BYTES = 1 << 28
+# Bucket tables of products with at most this many columns are cached, at
+# most this many tables and bytes of them (above the distinct fixed tables
+# a serving tick touches, so iterative solvers cannot thrash them).
+_REF_CACHE_COLS = 32
+_REF_CACHE_SIZE = 16
+_REF_CACHE_BYTES = 1 << 27
 
 
 class QueryState:
@@ -88,16 +102,25 @@ class ProximityEngine:
     # on the card, in ``block_prox`` row blocks, at every size.
     _SPARSE_TRAIN_CUTOVER = 8192
 
-    def __init__(self, ctx, assignment, forest=None, oos_cache_size: int = 8):
+    def __init__(self, ctx, assignment, forest=None, oos_cache_size: int = 8,
+                 factors=None):
         self.ctx = ctx
         self.assignment = assignment
         self.forest = forest
         self.device = ctx.device
         self.total_leaves = int(ctx.total_leaves)
         self.gl = ctx.global_leaves()                        # (N, T) int32
-        self.q = assignment.query_weights(ctx.leaves).contiguous()
-        self.w = self.q if assignment.symmetric else \
-            assignment.reference_weights(ctx.leaves).contiguous()
+        # ``factors=(q, w)`` injects precomputed weights (w may be None for
+        # a symmetric rule) instead of running the assignment again
+        if factors is not None:
+            q, w = factors
+            self.q = self._tensor(q).contiguous()
+            self.w = self.q if (assignment.symmetric or w is None) else \
+                self._tensor(w).contiguous()
+        else:
+            self.q = assignment.query_weights(ctx.leaves).contiguous()
+            self.w = self.q if assignment.symmetric else \
+                assignment.reference_weights(ctx.leaves).contiguous()
 
         # host CSR factors: int64 leaf ids and float64 weights copied back
         gl_host = self.gl.cpu().numpy().astype(np.int64)
@@ -106,17 +129,40 @@ class ProximityEngine:
         self.W = self.Q if self.w is self.q else build_leaf_map(
             gl_host, self.w.cpu().numpy(), self.total_leaves)
         self.leaf_values = None if forest is None else forest.leaf_values_
+        self._init_runtime_state(oos_cache_size=oos_cache_size)
 
+    def _init_runtime_state(self, oos_cache=None, oos_cache_size: int = 8,
+                            oos_lock: Optional[threading.Lock] = None) -> None:
+        """Per-engine mutable state; the one place where both the primary
+        constructor and factor-slicing views (``CompressedProximityEngine``)
+        set it, so a new runtime attribute cannot go missing on one of them.
+        Expects the factor attributes (gl/q/w/Q/W, device) to be set.
+
+        The block kernel's leaf index describes this engine's reference
+        columns, so every engine and view starts without one.  A view may
+        share its parent's routed OOS states, but only together with the
+        lock that guards them: two locks on one dict protect nothing.
+        """
         self._train_state = QueryState(self.gl, self.q, self.total_leaves,
                                        Q=self.Q)
-        # routed OOS query states; the tiered server will touch the cache
-        # from one worker thread per tier, so bookkeeping is locked
-        self._oos_cache: "OrderedDict[str, QueryState]" = OrderedDict()
+        # routed OOS query states; the tiered server touches the cache from
+        # one worker thread per tier, so bookkeeping is locked
+        self._oos_cache: "OrderedDict[str, QueryState]" = \
+            OrderedDict() if oos_cache is None else oos_cache
         self._oos_cache_size = oos_cache_size
-        self._qs_lock = threading.Lock()
+        self._qs_lock = threading.Lock() if oos_lock is None else oos_lock
         self.qs_cache_hits = 0
         self.qs_cache_misses = 0
         self._train_row_sums: Optional[torch.Tensor] = None
+        # reference bucket tables S = Wᵀ V on the device, LRU of key ->
+        # (keepalive V | None, S); bounded in entries and in bytes
+        self._ref_cache: "OrderedDict[object, tuple]" = OrderedDict()
+        self._ref_cache_size = _REF_CACHE_SIZE
+        self._ref_cache_bytes = 0
+        self._ref_cache_byte_budget = _REF_CACHE_BYTES
+        # predict's label tables, memoized by label-array identity
+        self._label_cache: "OrderedDict[object, tuple]" = OrderedDict()
+        self._app_cache: dict = {}    # application-level per-engine caches
         self._leaf_index: Optional[LeafIndex] = None
         self._leaf_density: Optional[float] = None
         self._index_lock = threading.Lock()
@@ -146,19 +192,28 @@ class ProximityEngine:
         if X is None:
             return self._train_state
         key = self._batch_key(X)
+        hit = self._qs_cache_get(key)
+        if hit is not None:
+            return hit
+        if self.forest is None:
+            raise ValueError("OOS queries need the backing forest")
+        leaves = self.forest.apply(X)
+        return self._qs_cache_put(key, QueryState(
+            self.ctx.global_leaves(leaves),
+            self.assignment.oos_query_weights(leaves).contiguous(),
+            self.total_leaves))
+
+    def _qs_cache_get(self, key: str) -> Optional[QueryState]:
         with self._qs_lock:
             hit = self._oos_cache.get(key)
             if hit is not None:
                 self._oos_cache.move_to_end(key)
                 self.qs_cache_hits += 1
-                return hit
-            self.qs_cache_misses += 1
-        if self.forest is None:
-            raise ValueError("OOS queries need the backing forest")
-        leaves = self.forest.apply(X)
-        state = QueryState(self.ctx.global_leaves(leaves),
-                           self.assignment.oos_query_weights(leaves)
-                           .contiguous(), self.total_leaves)
+            else:
+                self.qs_cache_misses += 1
+            return hit
+
+    def _qs_cache_put(self, key: str, state: QueryState) -> QueryState:
         # built outside the lock: two threads racing on one new batch
         # duplicate work, never corrupt the dict
         with self._qs_lock:
@@ -183,20 +238,60 @@ class ProximityEngine:
         ``normalized`` divides each output row by the *unmasked* kernel row
         sum Σ_j P(i,j), i.e. applies D⁻¹ P.
         """
-        V = self._tensor(V)
+        Vt = self._tensor(V)
+        key = None
         if col_mask is not None:
-            V = V * self._tensor(col_mask)[:, None]
-        out = self._product(self.query_state(X), V)
+            Vt = Vt * self._tensor(col_mask)[:, None]
+        elif Vt.shape[1] <= _REF_CACHE_COLS:
+            # keyed by the caller's object, which the entry keeps alive
+            key = ("id", id(V))
+        out = self._product(self.query_state(X), Vt, key=key, keepalive=V)
         if normalized:
             d = self.row_sums(X=X)
             out = out / d.clamp_min(np.finfo(np.float64).tiny)[:, None]
         return out
 
-    def _product(self, qs: QueryState, V: torch.Tensor) -> torch.Tensor:
-        t_chunk = torch_ops.auto_t_chunk(self.n_ref, self.gl.shape[1],
-                                         V.shape[1])
-        return torch_ops.swlc_predict(qs.gl, qs.q, self.gl, self.w, V,
-                                      self.total_leaves, t_chunk=t_chunk)
+    def _product(self, qs: QueryState, V: torch.Tensor, key=None,
+                 keepalive=None) -> torch.Tensor:
+        return torch_ops.swlc_gather(qs.gl, qs.q,
+                                     self._ref_table(V, key, keepalive),
+                                     self._t_chunk(V.shape[1]))
+
+    def _t_chunk(self, C: int) -> Optional[int]:
+        return torch_ops.auto_t_chunk(self.n_ref, self.gl.shape[1], C)
+
+    def _ref_table(self, V: torch.Tensor, key=None,
+                   keepalive=None) -> torch.Tensor:
+        """Reference bucket table S = Wᵀ V of P V = Q (Wᵀ V) on the device —
+        the half that does not depend on the query rows.
+
+        Narrow V (≤ 32 columns: labels, class scores, Nyström bases) is
+        LRU-cached, so a serving loop applying the same V every tick pays
+        the O(N_ref·T) bucket pass once and only the O(n_query·T) gather
+        after.  ``key`` is the caller's: a content key for tables built
+        anew per call (label tables, the ones vector), or ``("id", id(V))``
+        for the caller's own object, kept alive in the entry as
+        ``keepalive`` so its id cannot be reused while cached (no hashing
+        per call; iterative solvers whose V changes every call rotate
+        through the LRU).  Cached V is treated as immutable.  Without a key
+        (wide or masked V) the table is not cached.  The device bytes of
+        the cached tables are bounded.
+        """
+        if key is not None:
+            hit = self._ref_cache.get(key)
+            if hit is not None:
+                self._ref_cache.move_to_end(key)
+                return hit[1]
+        S = torch_ops.swlc_bucket(self.gl, self.w, V, self.total_leaves,
+                                  self._t_chunk(V.shape[1]))
+        if key is not None:
+            self._ref_cache[key] = (keepalive, S)
+            self._ref_cache_bytes += S.numel() * S.element_size()
+            while len(self._ref_cache) > self._ref_cache_size or \
+                    self._ref_cache_bytes > self._ref_cache_byte_budget:
+                _, (_, old) = self._ref_cache.popitem(last=False)
+                self._ref_cache_bytes -= old.numel() * old.element_size()
+        return S
 
     def row_sums(self, X=None) -> torch.Tensor:
         """Kernel row sums Σ_j P(i,j) = P·1 through the factors (the degree
@@ -205,7 +300,9 @@ class ProximityEngine:
             return self._train_row_sums
         ones = torch.ones((self.n_ref, 1), dtype=torch.float64,
                           device=self.device)
-        out = self._product(self.query_state(X), ones)[:, 0]
+        # a content key: OOS row sums cost the query-side gather only
+        out = self._product(self.query_state(X), ones,
+                            key=("ones", self.n_ref))[:, 0]
         if X is None:
             self._train_row_sums = out
         return out
@@ -265,10 +362,10 @@ class ProximityEngine:
             gl_q, q = gl_q[r], q[r]
         return self._block(gl_q, q, cols)
 
-    def _dense_blocks(self, qs: QueryState):
-        """Row chunks of P[qs, :] as (i0, i1, block), sized by output
-        bytes."""
-        step = max(1, _BLOCK_BYTES // (8 * max(self.n_ref, 1)))
+    def _dense_blocks(self, qs: QueryState, block: int):
+        """Row chunks of P[qs, :] as (i0, i1, block): at most ``block`` rows
+        and ``_BLOCK_BYTES`` of output each."""
+        step = max(1, min(block, _BLOCK_BYTES // (8 * max(self.n_ref, 1))))
         for i0 in range(0, qs.n, step):
             i1 = min(i0 + step, qs.n)
             yield i0, i1, self._block(qs.gl[i0:i1], qs.q[i0:i1])
@@ -302,7 +399,7 @@ class ProximityEngine:
                    self._tensor(class_ids, torch.int64)] = 1.0
         shape = (qs.n,) if onehot is None else (qs.n, n_classes)
         out = torch.zeros(shape, dtype=torch.float64, device=self.device)
-        for i0, i1, B in self._dense_blocks(qs):
+        for i0, i1, B in self._dense_blocks(qs, block):
             B2 = B * B
             out[i0:i1] = B2.sum(dim=1) if onehot is None else B2 @ onehot
         return out
@@ -338,17 +435,8 @@ class ProximityEngine:
             raise ValueError("exclude_self is only defined for training-set "
                              "queries (X=None)")
         qs = self.query_state(X)
-        y = np.asarray(y)
-        if n_classes is not None:
-            Y = torch.zeros((len(y), n_classes), dtype=torch.float64,
-                            device=self.device)
-            Y[torch.arange(len(y), device=self.device),
-              self._tensor(y.astype(np.int64), torch.int64)] = 1.0
-        else:
-            Y = torch.stack([self._tensor(y.astype(np.float64)),
-                             torch.ones(len(y), dtype=torch.float64,
-                                        device=self.device)], dim=1)
-        out = self._product(qs, Y)
+        Y, ref_key = self._label_table(y, n_classes)
+        out = self._product(qs, Y, key=ref_key)
         if exclude_self:
             # own-row contribution: same gl on both sides -> Σ_t q_t w_t
             diag = (qs.q * self.w).sum(dim=1)
@@ -357,11 +445,43 @@ class ProximityEngine:
             return out
         return out[:, 0] / out[:, 1].clamp_min(1e-300)
 
+    def _label_table(self, y, n_classes: Optional[int]):
+        """(Y, ref_key) for predict's P·Y: one-hot classes or stacked
+        (target, ones) regression columns, on the device.
+
+        Serving calls predict with the *same* label array every tick, so
+        the table is memoized on the array's identity (holding a reference,
+        so the id cannot be reused while cached) and its bucket table keyed
+        by content: steady-state prediction builds nothing and hashes
+        nothing.  A small LRU; cached label arrays are treated as
+        immutable.
+        """
+        memo_key = (id(y), n_classes)
+        hit = self._label_cache.get(memo_key)
+        if hit is not None and hit[0] is y:
+            self._label_cache.move_to_end(memo_key)
+            return hit[1], hit[2]
+        ya = y.detach().cpu().numpy() if isinstance(y, torch.Tensor) \
+            else np.asarray(y)
+        if n_classes is not None:
+            Y = np.zeros((len(ya), n_classes))
+            Y[np.arange(len(ya)), ya.astype(np.int64)] = 1.0
+        else:
+            Y = np.stack([ya.astype(np.float64), np.ones(len(ya))], axis=1)
+        ref_key = ("labels", self._batch_key(Y))
+        Yd = self._tensor(Y)
+        self._label_cache[memo_key] = (y, Yd, ref_key)
+        while len(self._label_cache) > 4:
+            self._label_cache.popitem(last=False)
+        return Yd, ref_key
+
     def topk(self, k: int = 10, X=None,
              block: int = 4096) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Per-query top-k proximities (values descending): dense device
-        blocks reduced by ``torch.topk``, or host CSR for large train-side
-        jobs on a CPU engine.  Returns (indices int64, values float64)."""
+        """Per-query top-k proximities, values descending and equal values
+        by ascending column (so the card and the host pick the same
+        columns): dense device blocks reduced by ``torch.topk``, or host
+        CSR for large train-side jobs on a CPU engine.  Returns (indices
+        int64, values float64)."""
         qs = self.query_state(X)
         if self._sparse_train(X):
             idx, val = topk_neighbors(qs.Q, self.W, k, block=block)
@@ -369,10 +489,17 @@ class ProximityEngine:
         kk = min(k, self.n_ref)
         idx = torch.zeros((qs.n, k), dtype=torch.int64, device=self.device)
         val = torch.zeros((qs.n, k), dtype=torch.float64, device=self.device)
-        for i0, i1, B in self._dense_blocks(qs):
-            v, ix = torch.topk(B, kk, dim=1)
-            idx[i0:i1, :kk] = ix
-            val[i0:i1, :kk] = v
+        spill = torch.zeros(qs.n, dtype=torch.bool, device=self.device)
+        for i0, i1, B in self._dense_blocks(qs, block):
+            idx[i0:i1, :kk], val[i0:i1, :kk], spill[i0:i1] = \
+                _topk_rows(B, kk)
+        if bool(spill.any()):          # one host read for the whole call
+            rows = spill.nonzero()[:, 0]
+            step = max(1, min(block, _BLOCK_BYTES // (8 * self.n_ref)))
+            for r0 in range(0, rows.numel(), step):
+                r = rows[r0:r0 + step]
+                idx[r, :kk], val[r, :kk] = _topk_rows_exact(
+                    self._block(qs.gl[r], qs.q[r]), kk)
         return idx, val
 
     # ---------------- accounting ----------------
@@ -392,3 +519,114 @@ class ProximityEngine:
         out["leaf_index"] = 0 if index is None else index.nbytes
         out["total"] = sum(out.values())
         return out
+
+
+# Candidates a row's top-k takes beyond k, so that the columns tied at the
+# k-th value are among them (then ordered by column) without a host read.
+_TIE_SLACK = 16
+
+
+def _by_value_then_column(B: torch.Tensor, ix: torch.Tensor):
+    """(columns, values) of the columns ``ix`` of each row of ``B``, values
+    descending and equal values by ascending column."""
+    ix = ix.sort(dim=1).values
+    v, order = torch.sort(B.gather(1, ix), dim=1, descending=True,
+                          stable=True)
+    return ix.gather(1, order), v
+
+
+def _topk_rows(B: torch.Tensor, k: int):
+    """Each row's ``k`` largest entries of ``B`` as (columns, values,
+    spill), values descending and equal values by ascending column.
+
+    ``torch.topk`` may take any of the columns that tie at its last place,
+    so it takes ``_TIE_SLACK`` more candidates than asked: where the last
+    candidate's value is below the k-th, every column tied at the k-th
+    value is a candidate and the lowest of them are kept.  Elsewhere
+    ``spill`` is set, and :func:`_topk_rows_exact` must redo the row.
+    """
+    kc = min(k + _TIE_SLACK, B.shape[1])
+    v, ix = torch.topk(B, kc, dim=1)
+    spill = (v[:, -1] == v[:, k - 1]) & (kc < B.shape[1])
+    ix, v = _by_value_then_column(B, ix)
+    return ix[:, :k], v[:, :k], spill
+
+
+def _topk_rows_exact(B: torch.Tensor, k: int):
+    """:func:`_topk_rows`' order for rows whose ties at the k-th value
+    spill past the candidates: every column above that value, then the
+    lowest of its ties."""
+    thr = torch.topk(B, k, dim=1).values[:, -1:]
+    n_col = B.shape[1]
+    cols = torch.arange(n_col, device=B.device)
+    score = torch.where(B > thr, n_col,
+                        torch.where(B == thr, n_col - 1 - cols, -1))
+    return _by_value_then_column(B, torch.topk(score, k, dim=1).indices)
+
+
+def prediction_margin(scores) -> torch.Tensor:
+    """Per-row confidence of proximity-vote class scores, on their device.
+
+    margin_i = (top1_i - top2_i) / Σ_c scores[i, c] — the normalized vote
+    gap, in [0, 1].  The tiered server escalates a request to a heavier
+    engine when ``min_i margin_i`` falls below its threshold.  Rows with a
+    single class column (or none) are fully confident by convention.
+    """
+    s = torch.as_tensor(scores, dtype=torch.float64)
+    if s.dim() != 2 or s.shape[1] < 2:
+        return torch.full((s.shape[0] if s.dim() else 1,), float("inf"),
+                          dtype=torch.float64, device=s.device)
+    top2 = torch.topk(s, 2, dim=1).values
+    tot = s.sum(dim=1).clamp_min(np.finfo(np.float64).tiny)
+    return (top2[:, 0] - top2[:, 1]) / tot
+
+
+class PrefixProximityEngine(ProximityEngine):
+    """Depth-k prefix tier: the proximity engine of the depth-truncated
+    forest (DiNo/RanBu), derived from a fitted parent engine.
+
+    Truncating every tree at depth k maps each full leaf to its unique
+    ancestor at depth <= k, so the prefix forest's leaf codes are a gather
+    ``gl_k = gmap[gl_full]`` of the parent's global codes, on the device.
+    Training factors are contracted once here; an OOS batch reuses the
+    parent's routed (and cached) query state, so the prefix tier never
+    routes: one forest pass a batch serves every tier.
+    """
+
+    def __init__(self, parent: ProximityEngine, depth: int):
+        if parent.forest is None:
+            raise ValueError("prefix tiers need the backing forest")
+        self.parent = parent
+        self.depth = int(depth)
+        gmap, _, leaf_offset_k = prefix_leaf_contraction(
+            parent.forest.trees_, self.depth)
+        dev = parent.device
+        self._gmap = torch.as_tensor(gmap, device=dev)            # int64
+        self._leaf_offset_k = torch.as_tensor(leaf_offset_k, device=dev)
+        trunc = parent.forest.truncated(self.depth)
+        pctx = parent.ctx
+        ctx_k = EnsembleContext.from_forest(
+            trunc, X=pctx.X, y=pctx.y,
+            leaves=self._contract(pctx.global_leaves())[1])
+        super().__init__(ctx_k, get_assignment(parent.assignment.name, ctx_k),
+                         forest=trunc)
+
+    def _contract(self, gl_full: torch.Tensor):
+        """(global, within-tree) int32 prefix leaves of the parent's global
+        leaves."""
+        gl = self._gmap[gl_full.long()]
+        return (gl.to(torch.int32),
+                (gl - self._leaf_offset_k[None, :]).to(torch.int32))
+
+    def query_state(self, X=None) -> QueryState:
+        """Contract the parent's routed state instead of routing again."""
+        if X is None:
+            return self._train_state
+        key = self._batch_key(X)
+        hit = self._qs_cache_get(key)
+        if hit is not None:
+            return hit
+        gl, leaves = self._contract(self.parent.query_state(X).gl)
+        return self._qs_cache_put(key, QueryState(
+            gl, self.assignment.oos_query_weights(leaves).contiguous(),
+            self.total_leaves))

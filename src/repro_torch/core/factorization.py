@@ -16,8 +16,10 @@ import numpy as np
 import scipy.sparse as sp
 from scipy.sparse.linalg import LinearOperator
 
+from ..forest.trees import prefix_leaf_map
+
 __all__ = ["full_kernel", "kernel_block", "kernel_matvec_operator",
-           "topk_neighbors", "naive_swlc"]
+           "topk_neighbors", "prefix_leaf_contraction", "naive_swlc"]
 
 
 def full_kernel(Q: sp.csr_matrix, W: sp.csr_matrix,
@@ -59,9 +61,10 @@ def kernel_matvec_operator(Q: sp.csr_matrix, W: sp.csr_matrix) -> LinearOperator
 
 def topk_neighbors(Q: sp.csr_matrix, W: sp.csr_matrix, k: int,
                    block: int = 4096) -> Tuple[np.ndarray, np.ndarray]:
-    """Per-query top-k proximities, streamed in row blocks (never dense NxN);
-    a per-row ``argpartition`` keeps the selection O(nnz_row)."""
-    n = Q.shape[0]
+    """Per-query top-k proximities, streamed in row blocks (never dense
+    NxN): values descending, equal values (zeros too) by ascending
+    column."""
+    n, n_cols = Q.shape[0], W.shape[0]
     idx = np.zeros((n, k), dtype=np.int64)
     val = np.zeros((n, k))
     WT = W.T.tocsc() if not sp.isspmatrix_csc(W.T) else W.T
@@ -70,13 +73,38 @@ def topk_neighbors(Q: sp.csr_matrix, W: sp.csr_matrix, k: int,
         for r in range(B.shape[0]):
             lo, hi = B.indptr[r], B.indptr[r + 1]
             cols, vals = B.indices[lo:hi], B.data[lo:hi]
-            if len(vals) > k:
-                sel = np.argpartition(vals, -k)[-k:]
-                cols, vals = cols[sel], vals[sel]
-            order = np.argsort(-vals)
-            idx[i0 + r, :len(cols)] = cols[order]
-            val[i0 + r, :len(vals)] = vals[order]
+            # values descending, equal values by ascending column (the
+            # order the engine's device top-k gives), zeros included
+            order = np.lexsort((cols, -vals))[:k]
+            c = cols[order]
+            m = min(k, n_cols) - len(c)
+            if m > 0:
+                c = np.concatenate(
+                    [c, np.setdiff1d(np.arange(len(cols) + m), cols)[:m]])
+            idx[i0 + r, :len(c)] = c
+            val[i0 + r, :len(order)] = vals[order]
     return idx, val
+
+
+def prefix_leaf_contraction(trees, depth: int
+                            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Global leaf-contraction map for the depth-``depth`` prefix forest.
+
+    Every leaf of a fitted tree has a unique ancestor at depth <= ``depth``
+    which becomes a leaf of the truncated tree, so the prefix forest's
+    (N, T) leaf codes are a gather of the full forest's,
+    ``gl_k = gmap[gl_full]``.  Returns ``(gmap, n_leaves_k,
+    leaf_offset_k)``: the (L_full,) int64 map from global full-forest leaf
+    to global prefix-forest leaf, and the per-tree prefix leaf counts and
+    offsets (``truncate_tree``'s numbering).
+    """
+    maps = [prefix_leaf_map(t, depth) for t in trees]
+    n_leaves_k = np.array([int(m.max()) + 1 for m in maps], dtype=np.int32)
+    leaf_offset_k = np.concatenate(
+        [[0], np.cumsum(n_leaves_k[:-1])]).astype(np.int64)
+    gmap = np.concatenate(
+        [m + off for m, off in zip(maps, leaf_offset_k)]).astype(np.int64)
+    return gmap, n_leaves_k, leaf_offset_k
 
 
 def naive_swlc(leaves_q: np.ndarray, leaves_w: np.ndarray, q: np.ndarray,

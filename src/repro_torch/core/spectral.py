@@ -1,8 +1,11 @@
-"""Leaf-PCA on sparse leaf coordinates (paper §4.3), on the host.
+"""Spectral methods on sparse leaf coordinates (paper §4.3), on the host.
 
-Principal components of the (implicitly mean-centered) leaf map
+Leaf-PCA: principal components of the (implicitly mean-centered) leaf map
 Q ∈ R^{N×L}, computed with ARPACK/Lanczos via a LinearOperator so the dense
-centered matrix is never formed.  Copy of the reference's ``LeafPCA``.
+centered matrix is never formed.  ``kernel_eigs`` (P = QQᵀ from Q's SVD)
+and ``operator_eigs`` (Lanczos on a symmetric LinearOperator, whose
+products may run on the device) are the eigen-solvers of the proximity
+embedding.  Copies of the reference's code, with its ``v0`` seeds.
 """
 from __future__ import annotations
 
@@ -11,9 +14,9 @@ from typing import Optional
 
 import numpy as np
 import scipy.sparse as sp
-from scipy.sparse.linalg import LinearOperator, svds
+from scipy.sparse.linalg import LinearOperator, eigsh, svds
 
-__all__ = ["LeafPCA"]
+__all__ = ["LeafPCA", "kernel_eigs", "operator_eigs"]
 
 
 @dataclasses.dataclass
@@ -60,3 +63,23 @@ class LeafPCA:
 
     def fit_transform(self, Q: sp.csr_matrix) -> np.ndarray:
         return self.fit(Q).transform(Q)
+
+
+def kernel_eigs(Q: sp.csr_matrix, k: int = 10, seed: int = 0):
+    """Top eigenpairs of the (uncentered) Gram kernel P = QQᵀ from Q's SVD:
+    (eigvals = s², eigvecs = U), descending; never forms P."""
+    rng = np.random.default_rng(seed)
+    u, s, _ = svds(Q.astype(np.float64), k=k,
+                   v0=rng.normal(size=min(Q.shape)))
+    order = np.argsort(-s)
+    return (s ** 2)[order], u[:, order]
+
+
+def operator_eigs(op: LinearOperator, k: int = 10, seed: int = 0):
+    """Top-k eigenpairs of a symmetric LinearOperator via Lanczos, for the
+    asymmetric kernels (the caller symmetrizes P through its factored
+    products, ½(P + Pᵀ)v).  Returns (eigvals, eigvecs), descending."""
+    rng = np.random.default_rng(seed)
+    vals, vecs = eigsh(op, k=k, v0=rng.normal(size=op.shape[0]))
+    order = np.argsort(-vals)
+    return vals[order], vecs[:, order]

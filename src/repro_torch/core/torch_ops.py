@@ -19,7 +19,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["swlc_matvec", "swlc_matmat", "swlc_predict", "auto_t_chunk"]
+__all__ = ["swlc_matvec", "swlc_matmat", "swlc_predict", "swlc_bucket",
+           "swlc_gather", "auto_t_chunk"]
 
 
 def auto_t_chunk(n: int, T: int, C: int,
@@ -37,32 +38,52 @@ def swlc_matvec(gl: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
     return _swlc_product(gl, q, gl, w, v[:, None], total_leaves, None)[:, 0]
 
 
+def _step(T: int, t_chunk: Optional[int]) -> int:
+    return T if t_chunk is None else max(1, int(t_chunk))
+
+
+def swlc_bucket(gl_w: torch.Tensor, w: torch.Tensor, V: torch.Tensor,
+                total_leaves: int, t_chunk: Optional[int]) -> torch.Tensor:
+    """The reference half of ``P V = Q (Wᵀ V)``: the (total_leaves, C)
+    bucket table ``S = Wᵀ V``, summed with ``index_add_`` over tree chunks
+    of ``t_chunk`` (which bounds the (N_w, t_chunk, C) intermediate).  Each
+    leaf belongs to one tree, so the chunking does not change a bucket's
+    order of summation."""
+    C = V.shape[1]
+    step = _step(gl_w.shape[1], t_chunk)
+    S = torch.zeros((total_leaves, C), dtype=torch.float64, device=V.device)
+    for t0 in range(0, gl_w.shape[1], step):
+        contrib = w[:, t0:t0 + step, None] * V[:, None, :]   # (N_w, t, C)
+        S.index_add_(0, gl_w[:, t0:t0 + step].reshape(-1),
+                     contrib.reshape(-1, C))
+    return S
+
+
+def swlc_gather(gl_q: torch.Tensor, q: torch.Tensor, S: torch.Tensor,
+                t_chunk: Optional[int]) -> torch.Tensor:
+    """The query half: ``(P V)[i] = Σ_t q[i,t] · S[gl_q[i,t]]``, summed over
+    tree chunks of ``t_chunk``."""
+    nq, T = gl_q.shape
+    step = _step(T, t_chunk)
+    out = torch.zeros((nq, S.shape[1]), dtype=torch.float64, device=S.device)
+    for t0 in range(0, T, step):
+        qq = q[:, t0:t0 + step]
+        out += (qq[:, :, None] * S[gl_q[:, t0:t0 + step]]).sum(dim=1)
+    return out
+
+
 def _swlc_product(gl_q: torch.Tensor, q: torch.Tensor, gl_w: torch.Tensor,
                   w: torch.Tensor, V: torch.Tensor, total_leaves: int,
                   t_chunk: Optional[int]) -> torch.Tensor:
     """(P V) for P = SWLC(q, w) with query rows (gl_q, q) and reference rows
     (gl_w, w); V: (N_w, C).
 
-    ``t_chunk`` bounds the dense (N, t_chunk, C) intermediate: both the
-    bucket and the gather stage run over tree chunks.  The loop is eager,
-    so the last chunk is simply narrower; the reference's padding trees
-    (sentinel bucket ``total_leaves``) exist only to give jax's
-    ``fori_loop`` static shapes and have no counterpart here.
+    The loops are eager, so the last tree chunk is simply narrower; the
+    reference's padding trees (sentinel bucket ``total_leaves``) exist only
+    to give jax's ``fori_loop`` static shapes and have no counterpart here.
     """
-    nq, T = gl_q.shape
-    C = V.shape[1]
-    step = T if t_chunk is None else max(1, int(t_chunk))
-    S = torch.zeros((total_leaves, C), dtype=torch.float64, device=V.device)
-    for t0 in range(0, T, step):
-        ww = w[:, t0:t0 + step]
-        contrib = ww[:, :, None] * V[:, None, :]             # (N_w, t, C)
-        S.index_add_(0, gl_w[:, t0:t0 + step].reshape(-1),
-                     contrib.reshape(-1, C))
-    out = torch.zeros((nq, C), dtype=torch.float64, device=V.device)
-    for t0 in range(0, T, step):
-        qq = q[:, t0:t0 + step]
-        out += (qq[:, :, None] * S[gl_q[:, t0:t0 + step]]).sum(dim=1)
-    return out
+    return swlc_gather(gl_q, q, swlc_bucket(gl_w, w, V, total_leaves,
+                                            t_chunk), t_chunk)
 
 
 def swlc_matmat(gl: torch.Tensor, q: torch.Tensor, w: torch.Tensor,

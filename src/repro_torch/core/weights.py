@@ -8,8 +8,7 @@ expression in the same operation order, so the factors are bit-identical
 to the reference's.
 
 All functions return (N, T) float64 tensors; zeros are *structural* (they
-are dropped from the sparse factors).  ``ih`` (a host kNN over reference
-points) is not ported yet.
+are dropped from the sparse factors).
 """
 from __future__ import annotations
 
@@ -22,7 +21,7 @@ import torch
 from .context import EnsembleContext
 
 __all__ = ["WeightAssignment", "Original", "KeRF", "SeparableOOB", "RFGAP",
-           "Boosted", "get_assignment", "ASSIGNMENTS"]
+           "InstanceHardness", "Boosted", "get_assignment", "ASSIGNMENTS"]
 
 
 class WeightAssignment:
@@ -137,6 +136,70 @@ class RFGAP(WeightAssignment):
         return self._full(leaves, 1.0 / leaves.shape[1])
 
 
+class InstanceHardness(WeightAssignment):
+    """RFProxIH: q = 1/T, w_t(x) = 1 - kDN_t(x)  (B.5).
+
+    kDN_t is the share of x's ``k`` nearest neighbours, among ``max_ref``
+    reference rows drawn once on the host (``default_rng(0)``, as the
+    reference draws them), that disagree with x's label, in the subspace of
+    the features tree t splits on.  The kNN runs on the context's device in
+    float64, a tree at a time and in row chunks of at most ``_CHUNK_BYTES``
+    of distances; the reference's choice between the broadcast form and
+    the expansion form ``a² − 2ab + b²`` of the squared distances is kept,
+    so that small inputs sum as the reference does.
+    """
+    name = "ih"
+    symmetric = False
+    k = 5
+    max_ref = 2048
+    _BROADCAST_MAX = 5e7      # n·n_ref·d_t below it: the broadcast form
+    _CHUNK_BYTES = 1 << 30    # distances (or broadcast terms) a row chunk
+
+    def query_weights(self, leaves):
+        return self._full(leaves, 1.0 / leaves.shape[1])
+
+    def reference_weights(self, leaves):
+        ctx = self.ctx
+        if ctx.X is None or ctx.y is None or ctx.tree_features is None:
+            raise ValueError("'ih' weights need the context's X, y and "
+                             "tree_features")
+        dev = leaves.device
+        n, T = leaves.shape
+        ref = np.random.default_rng(0).choice(
+            ctx.n_train, min(self.max_ref, ctx.n_train), replace=False)
+        X = torch.as_tensor(np.asarray(ctx.X, dtype=np.float64), device=dev)
+        y = torch.as_tensor(np.asarray(ctx.y), device=dev)
+        ref_d = torch.as_tensor(ref, device=dev)
+        y_ref = y[ref_d]
+        out = torch.empty((n, T), dtype=torch.float64, device=dev)
+        for t in range(T):
+            feats = np.asarray(ctx.tree_features[t], dtype=np.int64)
+            if len(feats) == 0:
+                out[:, t] = 1.0
+                continue
+            f = torch.as_tensor(feats, device=dev)
+            A = X[:, f]
+            B = X[ref_d][:, f]
+            broadcast = n * len(ref) * len(feats) < self._BROADCAST_MAX
+            per_row = 8 * len(ref) * (len(feats) if broadcast else 1)
+            step = max(1, self._CHUNK_BYTES // per_row)
+            b2 = None if broadcast else (B * B).sum(1)
+            for i0 in range(0, n, step):
+                a = A[i0:i0 + step]
+                if broadcast:
+                    d2 = ((a[:, None, :] - B[None, :, :]) ** 2).sum(-1)
+                else:
+                    d2 = (a * a).sum(1)[:, None] - (2 * a) @ B.T + b2[None, :]
+                nn = torch.topk(d2, self.k, dim=1, largest=False).indices
+                bad = (y_ref[nn] != y[i0:i0 + step, None]).sum(1) \
+                    .to(torch.float64)
+                # numpy's mean divides; on CUDA, torch's mean and a division
+                # by a Python scalar multiply by the reciprocal instead
+                out[i0:i0 + step, t] = 1.0 - bad / torch.full_like(bad,
+                                                                   self.k)
+        return out
+
+
 class Boosted(WeightAssignment):
     """Tree-weighted (GBT): q = w = sqrt(w_t / Σ w_s)  (B.6).
 
@@ -154,15 +217,12 @@ class Boosted(WeightAssignment):
 
 
 ASSIGNMENTS: Dict[str, Type[WeightAssignment]] = {
-    c.name: c for c in [Original, KeRF, SeparableOOB, RFGAP, Boosted]
+    c.name: c for c in [Original, KeRF, SeparableOOB, RFGAP,
+                        InstanceHardness, Boosted]
 }
 
 
 def get_assignment(name: str, ctx: EnsembleContext) -> WeightAssignment:
-    if name == "ih":
-        raise NotImplementedError(
-            "kernel_method 'ih' (instance-hardness weights, a host kNN over "
-            "reference points) is not ported yet")
     if name not in ASSIGNMENTS:
         raise KeyError(f"unknown kernel_method {name!r}; have {sorted(ASSIGNMENTS)}")
     return ASSIGNMENTS[name](ctx)

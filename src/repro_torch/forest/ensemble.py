@@ -22,7 +22,7 @@ import torch
 from ..device import resolve_device
 from ..kernels.leaf_route.ops import RouteTables, route, route_tables
 from .bootstrap import bootstrap_counts, oob_mask
-from .trees import Tree, TreeArrays, stack_leaf_values
+from .trees import Tree, TreeArrays, stack_leaf_values, truncate_tree
 from .training import (Binner, TreeParams, _grow_trees, device_codes,
                        fit_forest_binned, fit_tree_binned,
                        resolve_tree_backend)
@@ -149,6 +149,19 @@ class BaseForest:
         else:
             table = v[:, 1:2]                               # (count, mean)
         self.leaf_table_ = torch.as_tensor(table, device=dev)
+
+    def truncated(self, depth: int) -> "BaseForest":
+        """The depth-``depth`` prefix of this fitted forest (DiNo/RanBu):
+        every tree replaced by :func:`~.trees.truncate_tree`'s prefix, the
+        in-bag counts, binner and training set shared with this forest, and
+        the routing tables rebuilt on this forest's device, so the routing
+        kernel routes it.  No refit."""
+        out = dataclasses.replace(
+            self, trees_=[truncate_tree(t, depth) for t in self.trees_],
+            tree_arrays_=None, leaf_values_=None, route_tables_=None,
+            leaf_table_=None)
+        out._cache_tables()
+        return out
 
     # ----- routing / prediction -----
     def tree_arrays(self) -> TreeArrays:

@@ -28,7 +28,8 @@ from ..device import resolve_device
 from ..kernels.leaf_route.ops import route, route_tables
 
 __all__ = ["Tree", "TreeArrays", "route_tree", "route_forest_batched",
-           "stack_leaf_values", "pack_trees", "unpack_trees"]
+           "stack_leaf_values", "pack_trees", "unpack_trees", "node_depths",
+           "truncate_tree", "prefix_leaf_map"]
 
 
 @dataclasses.dataclass
@@ -116,6 +117,71 @@ def route_forest_batched(ta: "TreeArrays", X, device="cuda") -> torch.Tensor:
     dev = resolve_device(device)
     return route(torch.as_tensor(X, dtype=torch.float64, device=dev),
                  route_tables(ta, dev))
+
+
+# ---------------------------------------------------------------------------
+# depth-prefix views (DiNo/RanBu latency tiers); host numpy, copies of the
+# reference's
+# ---------------------------------------------------------------------------
+
+def node_depths(tree: Tree) -> np.ndarray:
+    """(n_nodes,) int32 edge-depth of every node (root = 0), one vectorized
+    frontier sweep a level."""
+    n = tree.n_nodes
+    nd = np.zeros(n, dtype=np.int32)
+    internal = tree.feature >= 0
+    cur = np.zeros(1, dtype=np.int64) if n else np.empty(0, np.int64)
+    d = 0
+    while cur.size:
+        nd[cur] = d
+        ci = cur[internal[cur]]
+        cur = np.concatenate([tree.left[ci], tree.right[ci]]).astype(np.int64)
+        d += 1
+    return nd
+
+
+def truncate_tree(tree: Tree, depth: int) -> Tree:
+    """The depth-``depth`` prefix of a fitted tree as a standalone Tree.
+
+    Nodes strictly deeper than ``depth`` are dropped; internal nodes *at*
+    ``depth`` become leaves.  Every node stores its training payload, so
+    the truncated tree routes and predicts like one grown with
+    ``max_depth=depth`` on the same splits, without a refit.
+    """
+    if depth < 1:
+        raise ValueError(f"prefix depth must be >= 1, got {depth}")
+    nd = node_depths(tree)
+    keep = nd <= depth
+    new_id = np.cumsum(keep) - 1                      # old node -> new node
+    feature = tree.feature[keep].copy()
+    feature[nd[keep] == depth] = -1                   # frontier -> leaves
+    leaf = feature == -1
+    left = np.where(leaf, 0, new_id[tree.left[keep]]).astype(np.int32)
+    right = np.where(leaf, 0, new_id[tree.right[keep]]).astype(np.int32)
+    return Tree.from_growth(
+        feature, tree.threshold[keep], left, right, tree.value[keep],
+        tree.n_node_samples[keep], depth=max(1, min(tree.depth, depth)))
+
+
+def prefix_leaf_map(tree: Tree, depth: int) -> np.ndarray:
+    """(n_leaves,) int64 map: full-tree leaf ordinal -> ``truncate_tree(tree,
+    depth)`` leaf ordinal, so one routed pass over the full forest gives
+    the leaves of every depth-prefix tier by a gather."""
+    nd = node_depths(tree)
+    n = tree.n_nodes
+    # prefix-leaf ordinal per node, in node order (from_growth numbering)
+    is_pleaf = ((nd < depth) & (tree.feature == -1)) | (nd == depth)
+    ordinal = np.cumsum(is_pleaf) - 1
+    # ancestor at depth <= `depth` for every node, resolved level by level
+    parent = np.full(n, -1, dtype=np.int64)
+    ci = np.flatnonzero(tree.feature >= 0)
+    parent[tree.left[ci]] = ci
+    parent[tree.right[ci]] = ci
+    anc = np.arange(n, dtype=np.int64)
+    for d in range(depth + 1, int(nd.max(initial=0)) + 1):
+        sel = np.flatnonzero(nd == d)
+        anc[sel] = anc[parent[sel]]
+    return ordinal[anc[tree.leaf_nodes()]].astype(np.int64)
 
 
 # ---------------------------------------------------------------------------

@@ -126,11 +126,17 @@ def test_cuda_requested_without_a_card_raises(data, monkeypatch):
 
 
 def test_unported_options_raise(data):
-    """Gradient boosting is ported now; the instance-hardness rule and the
-    reference's own trainer backends are not, and raise."""
+    """Gradient boosting and the instance-hardness rule are ported now;
+    snapshots, serving and the reference's own trainer backends are not,
+    and raise."""
     Xtr, ytr, _, _ = data
-    with pytest.raises(NotImplementedError, match="ih"):
-        ForestKernel(kernel_method="ih", n_trees=2, device="cpu").fit(Xtr, ytr)
+    fk = ForestKernel(kernel_method="ih", n_trees=2, device="cpu").fit(Xtr,
+                                                                       ytr)
+    for call in (lambda: fk.save("unused.npz"),
+                 lambda: ForestKernel.load("unused.npz"), fk.serve,
+                 fk.serve_tiered):
+        with pytest.raises(NotImplementedError, match="serving slice"):
+            call()
     with pytest.raises(ValueError, match="tree backend"):
         ForestKernel(tree_backend="native", n_trees=2,
                      device="cpu").fit(Xtr, ytr)

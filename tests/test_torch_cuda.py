@@ -323,6 +323,136 @@ def test_large_train_side_jobs_stay_on_the_card(dev, monkeypatch):
                                rtol=0, atol=1e-8)
 
 
+# ------------------------------------------------ applications, views
+
+def _fit_pair(method="gap", n=3000, n_trees=12):
+    """A card kernel and a CPU kernel fitted alike (card trees equal host
+    trees, so both have the same leaves) and an OOS batch."""
+    from repro_torch.core.api import ForestKernel
+    from repro_torch.data.synthetic import gaussian_classes, train_test_split
+    X, y = gaussian_classes(n, d=10, n_classes=5, seed=8)
+    Xtr, ytr, Xte, _ = train_test_split(X, y, test_frac=0.2, seed=3)
+    kw = dict(kernel_method=method, n_trees=n_trees, seed=5)
+    gpu = ForestKernel(device="cuda", **kw).fit(Xtr, ytr)
+    cpu = ForestKernel(device="cpu", **kw).fit(Xtr, ytr)
+    assert torch.equal(gpu.engine.gl.cpu(), cpu.engine.gl)
+    return gpu, cpu, Xte
+
+
+def test_block_prox_kernel_on_the_compressed_engine(dev):
+    """The prototype-compressed engine's blocks (an OOS batch against its
+    prototype columns): its own leaf index, both forms with the same bits,
+    within 1e-12 of the plain version; its OOS ops match the CPU view."""
+    from repro_torch.applications.prototypes import CompressedProximityEngine
+    gpu, cpu, Xte = _fit_pair()
+    idx = np.sort(np.random.default_rng(1).choice(gpu.engine.n_ref, 70,
+                                                  replace=False))
+    ce = CompressedProximityEngine(gpu.engine, idx)
+    hce = CompressedProximityEngine(cpu.engine, idx)
+    assert ce._leaf_index is None
+    qs = gpu.engine.query_state(Xte)
+    _k2_check(qs.gl, qs.q, ce.gl, ce.w, index=ce.leaf_index())
+    assert ce.leaf_index().n_ref == 70
+    n0 = block_prox.launches
+    got = ce.kernel_block(None, X_rows=Xte)
+    assert block_prox.launches == n0 + 1
+    torch.testing.assert_close(got.cpu(), hce.kernel_block(None, X_rows=Xte),
+                               rtol=0, atol=1e-12)
+    gi, gv = ce.topk(10, X=Xte)
+    hi, hv = hce.topk(10, X=Xte)
+    torch.testing.assert_close(gv.cpu(), hv, rtol=0, atol=1e-8)
+    lab = gpu.ctx.y[idx]
+    torch.testing.assert_close(ce.predict(lab, 5, X=Xte).cpu(),
+                               hce.predict(lab, 5, X=Xte), rtol=0, atol=1e-8)
+
+
+def test_block_prox_kernel_on_the_prefix_engine(dev):
+    """The depth-4 prefix engine's big leaves take the dense form; the leaf
+    form on its own index gives the same bits; its OOS predict routes
+    nothing."""
+    from repro_torch.kernels.leaf_route import ops as route_ops
+    gpu, cpu, Xte = _fit_pair()
+    pe, hpe = gpu.prefix_engine(4), cpu.prefix_engine(4)
+    assert not pe.leaf_mode()
+    gq, qq = pe.gl[:77], pe.q[:77]
+    blk = pe.kernel_block(np.arange(77))
+    assert pe._leaf_index is None
+    torch.testing.assert_close(blk, block_prox_ref(gq, qq, pe.gl, pe.w),
+                               rtol=0, atol=1e-12)
+    _k2_check(gq, qq, pe.gl, pe.w, index=pe.leaf_index())
+    gpu.engine.query_state(Xte)
+    n0 = route_ops.route.launches
+    s = pe.predict(gpu.ctx.y, 5, X=Xte)
+    torch.cuda.synchronize()
+    assert route_ops.route.launches == n0
+    torch.testing.assert_close(s.cpu(), hpe.predict(cpu.ctx.y, 5, X=Xte),
+                               rtol=0, atol=1e-8)
+
+
+@pytest.mark.parametrize("depth", [1, 4, 9])
+def test_route_kernel_on_truncated_forests(dev, depth):
+    """K1 on a truncated forest's own records: bit-exact to the per-tree
+    oracle and to the contraction of the full forest's leaves."""
+    from repro_torch.forest.trees import prefix_leaf_map, route_tree
+    gpu, _, Xte = _fit_pair()
+    tf = gpu.forest.truncated(depth)
+    n0 = route.launches
+    leaves = tf.apply(Xte).cpu().numpy()
+    assert route.launches == n0 + 1
+    full = gpu.forest.apply(Xte).cpu().numpy()
+    for t, tree in enumerate(tf.trees_):
+        np.testing.assert_array_equal(leaves[:, t], route_tree(tree, Xte))
+        np.testing.assert_array_equal(
+            prefix_leaf_map(gpu.forest.trees_[t], depth)[full[:, t]],
+            leaves[:, t])
+
+
+@pytest.mark.parametrize("broadcast_max", [5e7, 0])
+def test_ih_weights_on_the_card(dev, broadcast_max):
+    """Card ``ih`` weights equal the host's, except where a row's 5th and
+    6th nearest squared distances lie within 1e-9 relative (sums in
+    another order may pick the other neighbour); both distance forms."""
+    from repro_torch.core.weights import InstanceHardness
+    gpu, cpu, _ = _fit_pair(method="gap", n=2500, n_trees=6)
+    got = InstanceHardness(gpu.ctx)
+    want = InstanceHardness(cpu.ctx)
+    got._BROADCAST_MAX = want._BROADCAST_MAX = broadcast_max
+    w = got.reference_weights(gpu.ctx.leaves).cpu()
+    hw = want.reference_weights(cpu.ctx.leaves)
+    ctx = cpu.ctx
+    refs = np.random.default_rng(0).choice(ctx.n_train, min(
+        2048, ctx.n_train), replace=False)
+    for t, feats in enumerate(ctx.tree_features):
+        A = ctx.X[:, feats]
+        d2 = np.sort(((A[:, None, :] - A[refs][None]) ** 2).sum(-1), axis=1)
+        near = d2[:, 5] - d2[:, 4] <= 1e-9 * d2[:, 5]
+        diff = (w[:, t] != hw[:, t]).numpy()
+        assert not (diff & ~near).any()
+
+
+def test_applications_on_the_card_match_a_cpu_engine(dev):
+    """Outlier scores (raw at 1e-10 relative, normalized at 1e-8) and label
+    propagation (labels equal away from a top-two margin below 1e-9,
+    scores at 1e-8) on the card against the CPU engine on the same
+    leaves."""
+    gpu, cpu, Xte = _fit_pair()
+    raw, hraw = gpu.outlier_scores(normalize=False).cpu(), \
+        cpu.outlier_scores(normalize=False)
+    torch.testing.assert_close(raw, hraw, rtol=1e-10, atol=0)
+    torch.testing.assert_close(gpu.outlier_scores().cpu(),
+                               cpu.outlier_scores(), rtol=0, atol=1e-8)
+    torch.testing.assert_close(gpu.oos_outlier_scores(Xte).cpu(),
+                               cpu.oos_outlier_scores(Xte), rtol=0,
+                               atol=1e-8)
+    labeled = np.random.default_rng(4).random(gpu.ctx.n_train) < 0.1
+    lab, sc = gpu.propagate_labels(labeled)
+    hlab, hsc = cpu.propagate_labels(labeled)
+    torch.testing.assert_close(sc.cpu(), hsc, rtol=0, atol=1e-8)
+    top2 = torch.topk(hsc, 2, dim=1).values
+    close = top2[:, 0] - top2[:, 1] < 1e-9
+    assert not ((lab.cpu() != hlab) & ~close).any()
+
+
 # ------------------------------------------------------------ K3 / K4
 
 def _hist_inputs(rng, n, n_nodes, d, n_bins, C, dev, sort=True,

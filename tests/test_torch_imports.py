@@ -35,6 +35,22 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+# the application layer and the core pieces it stands on
+SLICE_MODULES = (
+    "repro_torch.applications", "repro_torch.applications.embed",
+    "repro_torch.applications.imputation",
+    "repro_torch.applications.outliers",
+    "repro_torch.applications.propagate",
+    "repro_torch.applications.prototypes")
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_every_application_module_is_covered(module):
+    """The import check above walks the package; the application modules
+    are among what it imports."""
+    assert module in _module_names()
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_neither_jax_nor_repro(path):
     tree = ast.parse(path.read_text(), filename=str(path))
