@@ -53,12 +53,23 @@
    iterations of card refits, twice); then holds each against the port's
    CPU engine on the same leaves (training-set outliers on 1,024 rows and
    the embedding against the host CSR products; ``ih`` on 4 trees;
-   imputation against the CPU imputer at 5,000 rows).
+   imputation against the CPU imputer at 5,000 rows), and compares the two
+   card imputations' last refits tree for tree (printed, not checked);
+8. drives snapshots and serving on the acceptance kernel, counted: a
+   ``save``/``load`` round trip on the card (both digests, and the loaded
+   kernel's top-k, block and squared row sums bit for bit, its predict
+   labels equal), a ``ProximityServer`` over the full engine (64 slots,
+   256 seeded requests of 1-16 OOS rows: 40% predict, 25% top-k, 15%
+   outlier, 10% propagate, 10% embed; exactly one K1 launch a tick), the
+   tiered ladder from phase 7's prefix, compressed and full engines in
+   async mode, and the ladder again under seeded chaos (no request lost);
+   then holds every answer against a direct call on the engine of the
+   tier that gave it, and times K1 and K2 at a tick's 64 rows.
 
-Last it prints one ``{"kernels": [...]}`` line (launches on the main, GBT
-and applications paths, errors, kernel / plain / library times and the
-least time the card could take), the card's name and power limit, and as
-its last line ``{"ok": true, "device": {...}}``.
+Last it prints one ``{"kernels": [...]}`` line (launches on the main, GBT,
+applications and serving paths, errors, kernel / plain / library times
+and the least time the card could take), the card's name and power limit,
+and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It exits non-zero at once when torch finds no CUDA device or when the
@@ -70,6 +81,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -92,6 +104,9 @@ PROP_LABELED, PROP_ITERS = 0.1, 50
 N_EMBED_OOS = 2000
 IH_CHECK_TREES, IH_TIE_RTOL = 4, 1e-9
 IMPUTE_COLS, IMPUTE_FRAC, IMPUTE_ITERS, N_IMPUTE_HOST = 4, 0.1, 2, 5000
+# phase 8: snapshots and serving
+N_SERVE_REQ, SERVE_SLOTS = 256, 64
+SERVE_MIX = (0.40, 0.25, 0.15, 0.10, 0.10)  # predict/topk/outlier/prop./embed
 MARGIN_TIE = 1e-9        # propagation labels may differ below this margin
 ATOL_EMBED = 1e-6        # embedding coordinates, after aligning signs
 TREE_FIELDS = ("feature", "threshold", "left", "right", "leaf_id", "value",
@@ -144,24 +159,30 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def device_kernels(torch, fn):
+def device_kernels(torch, fn, want=None):
     """Run ``fn`` under ``torch.profiler``; returns its result, the device
     milliseconds of each kernel (or copy) name over the run and how many
-    times each ran."""
+    times each ran.  With ``want``, a window whose trace caught no kernel
+    whose name holds it (the profiler can lose a short window's device
+    events) is profiled again, up to three times in all, and then raises."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    times, counts = {}, {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
-            times[e.key] = times.get(e.key, 0.0) + us / 1e3
-            counts[e.key] = counts.get(e.key, 0) + e.count
-    return out, times, counts
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        times, counts = {}, {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                us = getattr(e, "self_device_time_total", None)
+                if us is None:
+                    us = e.self_cuda_time_total
+                times[e.key] = times.get(e.key, 0.0) + us / 1e3
+                counts[e.key] = counts.get(e.key, 0) + e.count
+        if want is None or any(want in k for k in counts):
+            return out, times, counts
+    raise RuntimeError(f"the profiler caught no {want} kernel in 3 windows "
+                       f"(caught: {sorted(counts)[:12]})")
 
 
 def hist_kernel_ms(times):
@@ -548,7 +569,8 @@ def main() -> int:
         check(torch.equal(route(Xr, tb), route_plain(Xr, tb)),
               f"leaf_route != plain version ({name})")
         _, t, c = device_kernels(torch, lambda: [route(Xr, tb)
-                                                 for _ in range(20)])
+                                                 for _ in range(20)],
+                                 "leaf_route")
         return (cuda_ms(torch, lambda: route(Xr, tb), 20),
                 hist_call_ms(t, c, "leaf_route"))
 
@@ -687,7 +709,8 @@ def main() -> int:
                   "the two kernel modes give different bits")
             ms = cuda_ms(torch, call, 10)
             _, t, c = device_kernels(torch, lambda: [call()
-                                                     for _ in range(20)])
+                                                     for _ in range(20)],
+                                     "histogram_")
             return ("fold" if fold else "rank"), ms, hist_call_ms(t, c)
         finally:
             h_ops._FOLD_UNITS_PER_SM = keep
@@ -747,7 +770,8 @@ def main() -> int:
     k3_node_ms = cuda_ms(torch, lambda: histogram(codes, *k3_args,
                                                   rows=k3_rows), 10)
     k3_plain_ms = cuda_ms(torch, k3_plain, 3)
-    _, kt, kc = device_kernels(torch, lambda: [k3_call() for _ in range(20)])
+    _, kt, kc = device_kernels(torch, lambda: [k3_call() for _ in range(20)],
+                               "histogram_")
     k3_dev_ms = hist_call_ms(kt, kc)
     k3_ops = ops_per_call(kc)
     k3_mode, k3_alt_ms, k3_alt_dev = modes(k3_call, k3_out, D, n_bins,
@@ -818,7 +842,8 @@ def main() -> int:
     k4_ms = cuda_ms(torch, k4_call, 20)
     k4_node_ms = cuda_ms(torch, lambda: moments(g_codes, *k4_args,
                                                 rows=k4_rows), 20)
-    _, kt, kc = device_kernels(torch, lambda: [k4_call() for _ in range(20)])
+    _, kt, kc = device_kernels(torch, lambda: [k4_call() for _ in range(20)],
+                               "histogram_")
     k4_dev_ms = hist_call_ms(kt, kc)
     k4_ops = ops_per_call(kc)
     k4_mode, k4_alt_ms, k4_alt_dev = modes(k4_call, k4_out, D, g_bins, 3, 3,
@@ -1051,26 +1076,31 @@ def main() -> int:
                       & (tie_val[:, PROTO_K] > 0)).sum())
     hce = CompressedProximityEngine(he, ce.prototype_indices_,
                                     labels=ce.prototype_labels_)
-    aerrs["compressed predict_oos"] = (max_err(ce_pred, hce.predict(
-        ce.prototype_labels_, N_CLASSES, X=Xte)), ATOL_OPS)
-    h_ci, h_cv = hce.topk(k=K, X=Xte)
+    aerrs["compressed predict_oos"] = (max_err(ce_pred, hosted(
+        "compressed", lambda: hce.predict(ce.prototype_labels_, N_CLASSES,
+                                          X=Xte))), ATOL_OPS)
+    h_ci, h_cv = hosted("compressed", lambda: hce.topk(k=K, X=Xte))
     aerrs["compressed topk_oos values"] = (max_err(ce_val, h_cv), ATOL_OPS)
     ce_idx_same = float((ce_idx.cpu() == h_ci).float().mean())
     hclf = NearestPrototypeClassifier(
         prototype_indices_=ce.prototype_indices_,
         prototype_labels_=ce.prototype_labels_, engine_=he)
     aerrs["prototype decision_function"] = (max_err(
-        clf.decision_function(Xte), hclf.decision_function(Xte)), ATOL_OPS)
-    check(torch.equal(clf_pred.cpu(), hclf.predict(Xte)),
+        clf.decision_function(Xte), hosted(
+            "compressed", lambda: hclf.decision_function(Xte))), ATOL_OPS)
+    check(torch.equal(clf_pred.cpu(), hosted(
+        "compressed", lambda: hclf.predict(Xte))),
           "nearest-prototype predictions differ from the host's")
     hpe = hosted("prefix", lambda: host.prefix_engine(PREFIX_DEPTH))
     check(torch.equal(pe.gl.cpu(), hpe.gl), "prefix codes differ")
-    aerrs["prefix predict_oos"] = (max_err(pe_scores, hpe.predict(
-        ytr, N_CLASSES, X=Xte)), ATOL_OPS)
+    hpe_scores = hosted("prefix", lambda: hpe.predict(ytr, N_CLASSES,
+                                                      X=Xte))
+    aerrs["prefix predict_oos"] = (max_err(pe_scores, hpe_scores), ATOL_OPS)
     aerrs["prefix margin"] = (max_err(pe_margin, prediction_margin(
-        hpe.predict(ytr, N_CLASSES, X=Xte))), ATOL_OPS)
-    check(np.array_equal(trunc_leaves.cpu().numpy(), np.stack(
-        [route_tree(t, Xte) for t in trunc.trees_], axis=1)),
+        hpe_scores)), ATOL_OPS)
+    check(np.array_equal(trunc_leaves.cpu().numpy(), hosted(
+        "prefix", lambda: np.stack([route_tree(t, Xte)
+                                    for t in trunc.trees_], axis=1))),
         "K1 on the truncated forest != route_tree")
     h_onl = hosted("propagation", lambda: host.propagate_labels(
         labeled, n_iter=PROP_ITERS, online=True))
@@ -1135,10 +1165,13 @@ def main() -> int:
     ih_near = int(near.sum())
     hik = hosted("ih", lambda: host_kernel(ik, factors=(
         ik.engine.q.cpu(), ik.engine.w.cpu())))
-    aerrs["ih predict_oos"] = (max_err(ih_pred, hik.engine.predict(
-        ytr, N_CLASSES, X=Xte)), ATOL_OPS)
-    aerrs["ih topk_oos values"] = (max_err(ih_val, hik.topk(k=K, X=Xq)[1]),
-                                   ATOL_OPS)
+    aerrs["ih predict_oos"] = (max_err(ih_pred, hosted(
+        "ih", lambda: hik.engine.predict(ytr, N_CLASSES, X=Xte))), ATOL_OPS)
+    # the top-k values of the same 4,096 rows from the host CSR product of
+    # the CPU kernel's maps (its dense plain blocks take minutes here)
+    aerrs["ih topk_oos values"] = (max_err(ih_val, hosted(
+        "ih", lambda: topk_neighbors(hik.query_map(Xq), hik.W_, K)[1])),
+        ATOL_OPS)
     # imputation: observed entries untouched, better than the median fill,
     # and the card against the CPU imputer (host trainer) at 5,000 rows
     Xi = imp.X_imputed_
@@ -1151,6 +1184,14 @@ def main() -> int:
     check(err_imp < 0.8 * err_med, f"imputation error {err_imp} not below "
           f"0.8 x the median fill's {err_med}")
     run_diff = float(np.abs(imp2.X_imputed_ - Xi).max())
+    # the two card imputations' last refits, tree for tree: the bucket sums'
+    # atomics may move a filled value across a bin edge
+    tree_diff = [next((f for f in TREE_FIELDS if not np.array_equal(
+        getattr(a, f), getattr(b, f))), None) for a, b in zip(
+            imp.kernel_.forest.trees_, imp2.kernel_.forest.trees_)]
+    n_tree_diff = sum(f is not None for f in tree_diff)
+    first_tree_diff = next((f"tree {t} field {f}" for t, f in
+                            enumerate(tree_diff) if f is not None), "none")
     himp = hosted("imputation", lambda: ForestKernel(
         device="cpu", **imp_kw).impute(Xm_small, ytr[:N_IMPUTE_HOST],
                                        n_iter=IMPUTE_ITERS))
@@ -1172,12 +1213,288 @@ def main() -> int:
           f"(rtol vs host {eig_rel:.2e}); ih weights on {IH_CHECK_TREES} "
           f"trees: {int(ih_diff.sum())} differ, {ih_near} (row, tree) near "
           f"ties; imputation error {err_imp:.4f} vs median fill "
-          f"{err_med:.4f}, two card runs differ by at most {run_diff:.3e}; "
+          f"{err_med:.4f}, two card runs differ by at most {run_diff:.3e} "
+          f"and their last refits in {n_tree_diff} of {len(tree_diff)} "
+          f"trees (first difference: {first_tree_diff}); "
           f"host checks {time.perf_counter() - t_host:.1f} s (" + ", ".join(
               f"{k} {v:.1f}" for k, v in host_s.items()) + ")", flush=True)
     print(f"compressed engine memory {mem_ce} vs full engine {mem_full}",
           flush=True)
     print(f"phase 7 wall: {time.perf_counter() - t7:.1f} s", flush=True)
+
+    # ---- phase 8: snapshots and serving on the card, counted ----
+    from repro_torch.applications.outliers import oos_outlier_scores
+    from repro_torch.core.factorization import factor_digest
+    from repro_torch.serve.proximity import Tier, TieredProximityServer
+    from repro_torch.serve.reliability import FaultInjector, RetryPolicy
+    t8 = time.perf_counter()
+    earlier = set(per_step)
+    reset_counts()
+    # 1. snapshot round trip of the acceptance kernel: the load routes
+    # nothing (the saved leaves) and recomputes no weight
+    with tempfile.TemporaryDirectory() as snap_dir:
+        snap_path = os.path.join(snap_dir, "acceptance.npz")
+        manifest = counted("save", lambda: fk.save(snap_path))
+        snap_bytes = os.path.getsize(snap_path)
+        lk = counted("load", lambda: ForestKernel.load(snap_path,
+                                                       device="cuda"))
+    check(per_step["load"].split("/")[0] == "0", "load launched K1")
+    check(lk.ctx.digest() == manifest["ctx_digest"] == fk.ctx.digest(),
+          "loaded context digest differs")
+    check(factor_digest(lk.engine.gl, lk.engine.q, lk.engine.w)
+          == manifest["factor_digest"], "loaded factor digest differs")
+    # the block kernel's ops give the saved kernel's bits; predict's class
+    # scores sum with index_add_ atomics (last bits vary between calls), so
+    # its labels are held equal except where the top-two scores of the
+    # saved kernel are within 1e-12
+    snap_same = {
+        "topk_oos": (fk.topk(k=K, X=Xq), lk.topk(k=K, X=Xq)),
+        "kernel_block": (fk.kernel_block(rows), lk.kernel_block(rows)),
+        "squared_row_sums_oos": (
+            eng.squared_row_sums(ytr, n_classes=N_CLASSES, X=Xte),
+            lk.engine.squared_row_sums(ytr, n_classes=N_CLASSES, X=Xte))}
+    for name, (a, b) in snap_same.items():
+        pairs = zip(a, b) if isinstance(a, tuple) else [(a, b)]
+        check(all(torch.equal(u, v) for u, v in pairs),
+              f"loaded kernel's {name} differs from the saved kernel's")
+    sc_saved = eng.predict(ytr, N_CLASSES, X=Xte)
+    sc_loaded = lk.engine.predict(ytr, N_CLASSES, X=Xte)
+    snap_pred_err = max_err(sc_loaded, sc_saved)
+    check(snap_pred_err <= 1e-12, f"loaded predict scores {snap_pred_err}")
+    top2 = torch.topk(sc_saved, 2, dim=1).values
+    near_tie = (top2[:, 0] - top2[:, 1] <= 1e-12).cpu().numpy()
+    lab_diff = (lk.predict(Xte) != fk.predict(Xte)).cpu().numpy()
+    check(not (lab_diff & ~near_tie).any(), "loaded predict labels differ")
+    del lk
+    print(f"snapshot: save {wall['save']:.3f} s, load {wall['load']:.3f} s "
+          f"({per_step['load']} launches), archive {snap_bytes} bytes; "
+          f"digests equal; topk_oos, kernel_block and squared_row_sums_oos "
+          f"bit for bit, predict labels equal ({int(near_tie.sum())} rows "
+          f"with a top-two gap <= 1e-12, {int(lab_diff.sum())} differ), "
+          f"scores within {snap_pred_err:.1e}", flush=True)
+
+    # 2. ProximityServer over the full engine: 256 seeded requests of 1-16
+    # disjoint OOS rows (each tick's batch is new to the engine's cache)
+    mix = ("predict", "topk", "outlier", "propagate", "embed")
+    rng8 = np.random.default_rng(16)
+    kinds8 = rng8.choice(mix, size=N_SERVE_REQ, p=SERVE_MIX)
+    sizes8 = rng8.integers(1, 17, size=N_SERVE_REQ)
+    offs8 = np.concatenate([[0], np.cumsum(sizes8)])
+    check(offs8[-1] <= N_OOS, "serving rows exceed the OOS batch")
+    reqs8 = [(str(kd), Xte[offs8[i]:offs8[i + 1]]) + ((K,) if kd == "topk"
+                                                      else ())
+             for i, kd in enumerate(kinds8)]
+    # the propagation field converged, so partial_fit is a pure projection
+    # and a direct call gives the server's answer
+    refine_steps = 0
+    while not onl.converged_ and refine_steps < 500:
+        refine_steps += onl.refine(10)
+    check(onl.converged_, "online propagation did not converge")
+    srv = fk.serve(n_slots=SERVE_SLOTS, propagator=onl, embedding=emb)
+    tick_log = []
+    inner_step = srv.step
+
+    def logged_step():
+        before = read_counts()
+        n_fin = len(srv.finished)
+        out = inner_step()
+        torch.cuda.synchronize()
+        after = read_counts()
+        tick_log.append(({r.kind for r in srv.finished[n_fin:]},
+                         after["leaf_route"] - before["leaf_route"],
+                         after["block_prox"] - before["block_prox"]))
+        return out
+    srv.step = logged_step
+    res8 = counted("ProximityServer 256 requests", lambda: srv.serve(reqs8))
+    serve_s = wall["ProximityServer 256 requests"]
+    st8 = srv.stats()
+    check(st8["requests"] == N_SERVE_REQ and not srv.failed_requests
+          and not srv.shed_requests, "ProximityServer lost requests")
+    for kinds, k1n, k2n in tick_log:
+        check(k1n == 1, f"a tick of {sorted(kinds)} launched {k1n} K1")
+        check(k2n >= len(kinds & {"topk", "outlier"}),
+              f"a tick of {sorted(kinds)} launched {k2n} K2")
+    lat = np.array([r.latency_s for r in srv.finished])
+    svc = np.array([r.service_s for r in srv.finished])
+    reg8 = srv.registry
+    h_op = reg8.histogram("engine_op_seconds",
+                          labels=("op", "backend", "tier"))
+    op_ms = {op: h_op.labels(op=op, backend=eng.device.type, tier="server")
+             for op in ("query_state", "predict", "topk",
+                        "squared_row_sums")}
+    phase5 = {"predict": "predict_oos", "topk": "topk_oos",
+              "squared_row_sums": "squared_row_sums_oos"}
+    k2_per_tick = [k2n for _, _, k2n in tick_log]
+    print(f"ProximityServer (full engine, {SERVE_SLOTS} slots): "
+          f"{N_SERVE_REQ} requests ("
+          + ", ".join(f"{kd} {int((kinds8 == kd).sum())}" for kd in mix)
+          + f") "
+          f"in {st8['ticks']} ticks, {serve_s:.3f} s, "
+          f"{N_SERVE_REQ / serve_s:.1f} requests/s, "
+          f"{serve_s / st8['ticks'] * 1e3:.3f} ms a tick; "
+          f"serve_request_seconds p50 {np.percentile(lat, 50) * 1e3:.3f} "
+          f"p99 {np.percentile(lat, 99) * 1e3:.3f} ms, serve_service_seconds "
+          f"p50 {np.percentile(svc, 50) * 1e3:.3f} p99 "
+          f"{np.percentile(svc, 99) * 1e3:.3f} ms; K1 a tick "
+          f"{min(t[1] for t in tick_log)}-{max(t[1] for t in tick_log)}, K2 "
+          f"a tick {min(k2_per_tick)}-{max(k2_per_tick)} "
+          f"(mean {np.mean(k2_per_tick):.2f}); mean occupancy "
+          f"{st8['mean_occupancy']:.1f}; propagation refined "
+          f"{refine_steps} steps to converge first", flush=True)
+    print("  engine_op_seconds mean ms (count) beside phase 5's warm call: "
+          + ", ".join(f"{op} {h.mean * 1e3:.3f} ({h.count})"
+                      + (f" vs {warm[phase5[op]] * 1e3:.3f}"
+                         if op in phase5 else "")
+                      for op, h in op_ms.items()), flush=True)
+    print("  per kind (ms): " + ", ".join(
+        f"{kd} n={v['requests']} p50 {v['p50_ms']:.3f} p95 "
+        f"{v['p95_ms']:.3f} service p50 {v['p50_service_ms']:.3f}"
+        for kd, v in st8["kinds"].items()), flush=True)
+
+    # 3. the tiered ladder from phase 7's engines (depth-4 prefix,
+    # compressed, full), async: an admission thread and a worker a tier
+    tiers = [Tier("shallow", pe, y=ytr, kinds=("predict",),
+                  n_slots=SERVE_SLOTS, n_classes=N_CLASSES),
+             Tier("compressed", ce, y=ce.prototype_labels_,
+                  kinds=("predict", "topk", "outlier"),
+                  n_slots=SERVE_SLOTS, n_classes=N_CLASSES),
+             Tier("full", eng, y=ytr, kinds=mix, n_slots=SERVE_SLOTS,
+                  n_classes=N_CLASSES, propagator=onl, embedding=emb)]
+    tsrv = TieredProximityServer(tiers, escalate_margin=0.1)
+
+    def tiered_async():
+        tsrv.start()
+        try:
+            return tsrv.wait([tsrv.submit(*r) for r in reqs8],
+                             timeout=300.0)
+        finally:
+            tsrv.stop()
+    tres = counted("TieredProximityServer 256 requests", tiered_async)
+    check(not any(t.is_alive() for t in tsrv._worker_threads.values()),
+          "a tier worker outlived stop()")
+    tier_s = wall["TieredProximityServer 256 requests"]
+    tst = tsrv.stats()
+    treqs = [tsrv._requests[u] for u in sorted(tsrv._requests)]
+    check(all(r.done.is_set() and r.result is not None for r in treqs),
+          "the tiered server lost a request")
+    agree_rows = esc_rows = 0
+    for r in treqs:
+        if r.escalations:
+            lab = [r.answers[t]["labels"] for t in r.tier_path]
+            agree_rows += int((lab[0] == lab[-1]).sum())
+            esc_rows += len(lab[0])
+    print(f"TieredProximityServer (async, shallow depth {PREFIX_DEPTH} -> "
+          f"compressed {ce.n_ref} columns -> full): {N_SERVE_REQ} requests "
+          f"in {tier_s:.3f} s, {N_SERVE_REQ / tier_s:.1f} requests/s; "
+          f"escalations {tst['escalations']} (rate "
+          f"{tst['escalation_rate']:.3f}), shed {tst['shed']}, spills "
+          f"{tst['reliability']['spills']}, timeouts {tst['timeouts']}; "
+          "per tier routed / ticks: " + ", ".join(
+              f"{t} {v['routed_requests']} / {v['ticks']}"
+              for t, v in tst["tiers"].items())
+          + f"; escalated rows whose shallow label the full tier kept "
+          f"{agree_rows} of {esc_rows}", flush=True)
+
+    # 4. chaos: the same requests through a fresh ladder, synchronously,
+    # with seeded exceptions, latency and corrupted results
+    inj = FaultInjector(error_rate=0.2, latency_rate=0.05, latency_s=0.001,
+                        corrupt_rate=0.05, seed=3)
+    csrv = TieredProximityServer(
+        tiers, escalate_margin=0.1, fault_injector=inj,
+        retry=RetryPolicy(max_retries=2, backoff_s=0.001))
+    c_uids = [csrv.submit(*r) for r in reqs8]
+    counted("chaos 256 requests", csrv.run_until_drained)
+    creqs = [csrv._requests[u] for u in c_uids]
+    c_done = sum(r.result is not None for r in creqs)
+    c_failed = sum(r.failed for r in creqs)
+    c_shed = sum(r.shed for r in creqs)
+    cst = csrv.stats()["reliability"]
+    check(all(r.done.is_set() for r in creqs), "chaos: a request never ended")
+    check(c_done + c_failed + c_shed == N_SERVE_REQ,
+          "chaos: a request was silently lost")
+    check(all(r.fail_reason for r in creqs if r.failed),
+          "chaos: a failure without a reason")
+    check(all(s.faults == s.retries + s.failed_calls
+              for s in csrv._servers), "chaos: fault accounting")
+    check(cst["faults"] > 0, "chaos: no fault was injected")
+    print(f"chaos (sync ladder, {inj.stats()['injected']} injected over "
+          f"{inj.stats()['calls']} calls): faults {cst['faults']}, retries "
+          f"{cst['retries']}, recovered calls {cst['recovered_calls']}, "
+          f"failed calls {cst['failed_calls']}, reroutes "
+          f"{cst['reroutes']}; requests answered {c_done}, failed "
+          f"{c_failed}, shed {c_shed} of {N_SERVE_REQ} (0 lost)", flush=True)
+    serve_launches = read_counts()
+    serve_steps = [k for k in per_step if k not in earlier]
+    print("serving path (s, K1/K2/K3/K4 launches): " + ", ".join(
+        f"{k} {wall[k]:.3f} ({per_step[k]})" for k in serve_steps)
+        + f"; launches {serve_launches}", flush=True)
+    for name in ("leaf_route", "block_prox"):
+        check(serve_launches[name] > 0,
+              f"{name} was not launched on the serving path")
+
+    # phase 8 checks: every answer against a direct call on the card, on
+    # the engine of the tier that gave it
+    direct = {"shallow": (pe, ytr), "compressed": (ce, ce.prototype_labels_),
+              "full": (eng, ytr)}
+    serr = {}
+
+    def note(name, e):
+        serr[name] = max(serr.get(name, 0.0), e)
+
+    def check_answer(kind, Xr, got, e, yv, where):
+        Xr = np.ascontiguousarray(Xr)
+        if kind == "predict":
+            want = e.predict(yv, N_CLASSES, X=Xr).argmax(1).cpu().numpy()
+            check(np.array_equal(got["labels"], want),
+                  f"{where} predict labels differ from a direct call")
+        elif kind == "topk":
+            i_, v_ = e.topk(k=K, X=Xr)
+            i_, v_ = i_.cpu().numpy(), v_.cpu().numpy()
+            cols = getattr(e, "prototype_indices_", None)
+            if cols is not None:
+                i_ = np.where(v_ > 0, cols[i_], -1)
+            check(np.array_equal(got["indices"], i_),
+                  f"{where} topk ids differ from a direct call")
+            note("topk values", float(np.abs(got["values"] - v_).max()))
+        elif kind == "outlier":
+            note("outlier scores", float(np.abs(
+                got["scores"]
+                - oos_outlier_scores(e, yv, Xr).cpu().numpy()).max()))
+        elif kind == "propagate":
+            note("propagate scores", float(np.abs(
+                got["scores"] - onl.partial_fit(Xr)[1].cpu().numpy()).max()))
+        else:
+            note("embed coordinates", float(np.abs(
+                got["embedding"] - emb.transform(Xr).cpu().numpy()).max()))
+
+    for (kind, Xr, *_), got in zip(reqs8, res8):
+        check_answer(kind, Xr, got, eng, ytr, "ProximityServer")
+    for (kind, Xr, *_), r in zip(reqs8, treqs):
+        check_answer(kind, Xr, r.result, *direct[r.final_tier],
+                     f"tier {r.final_tier}")
+    for name, lim in (("topk values", 1e-12), ("embed coordinates", 1e-8),
+                      ("outlier scores", 1e-10), ("propagate scores", 1e-10)):
+        print(f"  serving {name}: max err {serr.get(name, 0.0):.3e} "
+              f"(limit {lim:g})")
+        check(serr.get(name, 0.0) <= lim, f"serving {name} error")
+    # K1 and K2 at the serving shapes: a full tick's 64 rows routed, and
+    # its block against the 50,000 training columns and against the
+    # compressed engine's prototype columns
+    qs_tick = eng.query_state(Xte)
+    k1_tick = k1_case(f"{SERVE_SLOTS}x{N_TREES}", Xte_dev[:SERVE_SLOTS],
+                      tables)
+    k2_tick = {name: k2_case(name, e, qs_tick.gl[:SERVE_SLOTS],
+                             qs_tick.q[:SERVE_SLOTS])
+               for name, e in ((f"{SERVE_SLOTS}x{eng.n_ref}", eng),
+                               (f"{SERVE_SLOTS}x{ce.n_ref}", ce))}
+    print(f"serving shapes: K1 {SERVE_SLOTS} rows x {N_TREES} trees "
+          f"{k1_tick[0]:.4f} ms a call / {k1_tick[1]:.4f} on the device "
+          "(bit-exact); K2 " + ", ".join(
+              f"{k} leaf form {r[2]:.4f} ms, dense form {r[3]:.4f} ms "
+              f"(err {r[1]:.1e}, {'leaf' if e.leaf_mode() else 'dense'} "
+              "picked)" for (k, r), e in zip(k2_tick.items(), (eng, ce))),
+          flush=True)
+    print(f"phase 8 wall: {time.perf_counter() - t8:.1f} s", flush=True)
 
     # ---- bounds, from this run's shapes and data ----
     # K1 reads X once, each real node's 16-byte record once (not the
@@ -1219,7 +1536,8 @@ def main() -> int:
     k4_by = max(k4_terms, key=k4_terms.get)
 
     def total(name):
-        return launches[name] + gbt_launches[name] + app_launches[name]
+        return launches[name] + gbt_launches[name] + app_launches[name] \
+            + serve_launches[name]
     kernels = [
         {"name": "leaf_route", "route": "cuda",
          "source": "src/repro_torch/kernels/leaf_route/csrc/leaf_route.cu",
@@ -1278,9 +1596,10 @@ def main() -> int:
           f"call {k4_ops}; {k4_mode} mode (the other mode here: "
           f"{k4_alt_ms:.3f} ms a call, {k4_alt_dev:.3f} ms on the device, "
           f"same bits)")
-    print("launches (main path + GBT path + applications path): " +
-          ", ".join(f"{k} {launches[k]} + {gbt_launches[k]} + "
-                    f"{app_launches[k]}" for k in wrappers))
+    print("launches (main path + GBT path + applications path + serving "
+          "path): " + ", ".join(f"{k} {launches[k]} + {gbt_launches[k]} + "
+                                f"{app_launches[k]} + {serve_launches[k]}"
+                                for k in wrappers))
     print(f"wall: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

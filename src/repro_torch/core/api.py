@@ -16,11 +16,12 @@ Three stages:
 raises when no card is present; ``device="cpu"`` runs the same path through
 the kernels' plain versions.  Covered here: ``model_type`` "rf", "et" and
 "gbt", ``kernel_method`` "original", "kerf", "oob", "gap", "ih" and
-"boosted", and the proximity applications (imputation, outlier scores,
-prototypes and compression, label propagation, embedding) and the
-depth-prefix engine.  Snapshots (``save``/``load``) and serving
-(``serve``/``serve_tiered``) come with the serving slice and raise until
-then.
+"boosted", the proximity applications (imputation, outlier scores,
+prototypes and compression, label propagation, embedding), the
+depth-prefix engine, durable snapshots (``save``/``load``, in the
+reference's archive format, read and written by both packages) and
+serving (``serve``: a ``ProximityServer``; ``serve_tiered``: the
+shallow → compressed → full ladder).
 """
 from __future__ import annotations
 
@@ -44,9 +45,6 @@ __all__ = ["ForestKernel"]
 
 _MODEL_TYPES = {"rf": RandomForest, "et": ExtraTrees,
                 "gbt": GradientBoostedTrees}
-_LATER = ("ForestKernel.{} is not ported yet: it comes with the serving "
-          "slice (snapshots need the port's obs/ metrics, serving its "
-          "serve/ package)")
 
 
 @dataclasses.dataclass
@@ -145,26 +143,87 @@ class ForestKernel:
         """Kernel row sums Σ_j P(i,j) (proximity-graph degrees)."""
         return self.engine.row_sums(X=X)
 
-    # ---------------- snapshots and serving (a later slice) ----------------
+    # ---------------- durable snapshots ----------------
     def save(self, path) -> dict:
-        """Not ported yet: the snapshot writer needs the port's ``obs/``
-        metrics, which come with the serving slice."""
-        raise NotImplementedError(_LATER.format("save"))
+        """Snapshot the fitted kernel (trees, binner, θ, weight factors) to
+        a single checksummed npz archive in the reference's format (the
+        reference's ``ForestKernel.load`` reads it too); see
+        ``repro_torch.core.snapshot``.  Returns the written manifest."""
+        from .snapshot import save_kernel
+        return save_kernel(self, path)
 
     @classmethod
-    def load(cls, path, **kw) -> "ForestKernel":
-        """Not ported yet (see :meth:`save`)."""
-        raise NotImplementedError(_LATER.format("load"))
+    def load(cls, path, device="cuda") -> "ForestKernel":
+        """Warm-start a ForestKernel on ``device`` from :meth:`save` output
+        or from an archive the reference wrote — validates checksums and
+        version, rebuilds the engine from the saved factors (no refit, no
+        routing of the training set, no weight recomputation), and verifies
+        that the result is structurally identical to the saved engine."""
+        from .snapshot import load_kernel
+        return load_kernel(path, device=device)
 
-    def serve(self, *a, **kw):
-        """Not ported yet: ``ProximityServer`` comes with the serving
-        slice."""
-        raise NotImplementedError(_LATER.format("serve"))
+    # ---------------- serving ----------------
+    def serve(self, n_slots: int = 64, engine=None, **kw):
+        """A ``ProximityServer`` over this kernel's engine (or a compressed
+        engine passed via ``engine=``); see ``repro_torch.serve.proximity``.
 
-    def serve_tiered(self, *a, **kw):
-        """Not ported yet: ``TieredProximityServer`` comes with the serving
-        slice."""
-        raise NotImplementedError(_LATER.format("serve_tiered"))
+        Extra keyword arguments pass through — notably ``registry=``
+        (a ``repro_torch.obs.metrics.MetricsRegistry``; one is created by
+        default) and ``tracer=`` (a ``repro_torch.obs.trace.Tracer`` for
+        per-request span trees)."""
+        from ..serve.proximity import ProximityServer
+        eng = self.engine if engine is None else engine
+        y = getattr(eng, "prototype_labels_", None)
+        if y is None:
+            y = self.ctx.y
+        return ProximityServer(eng, y=y, n_slots=n_slots, **kw)
+
+    def serve_tiered(self, prefix_depth: Optional[int] = 4,
+                     compressed_engine=None, n_prototypes: int = 10,
+                     proto_k: int = 50, n_slots: int = 64,
+                     escalate_margin: float = 0.1, clock=None,
+                     propagator=None, embedding=None, **reliability_kw):
+        """A ``TieredProximityServer`` over the engine ladder
+        shallow (depth-prefix) → prototype-compressed → full.
+
+        ``prefix_depth=None`` drops the shallow tier;
+        ``compressed_engine=None`` builds one via :meth:`compress`.
+        ``propagate`` / ``embed`` requests (when enabled) route straight to
+        the full tier — they are fitted against the full reference set.
+        Extra keyword arguments (``fault_injector``, ``retry``,
+        ``breaker_threshold``, ``spill_watermark``, ``adaptive_margin``,
+        ``registry``, ``tracer``, ...) pass through to
+        ``TieredProximityServer`` — the ladder shares one metrics
+        registry across its tiers and traces every request by default
+        (``srv.tracer.export(path)`` writes Chrome-trace JSON).
+        """
+        import time as _time
+        from ..serve.proximity import Tier, TieredProximityServer
+        y = self.ctx.y
+        C = self.forest.n_classes_
+        tiers = []
+        if prefix_depth is not None:
+            tiers.append(Tier("shallow", self.prefix_engine(prefix_depth),
+                              y=y, kinds=("predict",), n_slots=n_slots,
+                              n_classes=C))
+        ce = compressed_engine
+        if ce is None:
+            ce = self.compress(n_prototypes=n_prototypes, k=proto_k)
+        tiers.append(Tier("compressed", ce, y=ce.prototype_labels_,
+                          kinds=("predict", "topk", "outlier"),
+                          n_slots=n_slots, n_classes=C))
+        full_kinds = ["predict", "topk", "outlier"]
+        if propagator is not None:
+            full_kinds.append("propagate")
+        if embedding is not None:
+            full_kinds.append("embed")
+        tiers.append(Tier("full", self.engine, y=y,
+                          kinds=tuple(full_kinds), n_slots=n_slots,
+                          n_classes=C, propagator=propagator,
+                          embedding=embedding))
+        return TieredProximityServer(tiers, escalate_margin=escalate_margin,
+                                     clock=_time.time if clock is None
+                                     else clock, **reliability_kw)
 
     # ---------------- proximity applications ----------------
     def _config_kwargs(self) -> dict:

@@ -10,12 +10,20 @@ stay on the host as well, where the CSR build reads them.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Optional
 
 import numpy as np
 import torch
 
 __all__ = ["EnsembleContext"]
+
+
+def _host(a, dtype) -> np.ndarray:
+    """A contiguous host copy of tensor or array ``a`` in ``dtype``."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.ascontiguousarray(a, dtype=dtype)
 
 
 @dataclasses.dataclass
@@ -55,6 +63,33 @@ class EnsembleContext:
         off = torch.as_tensor(self.leaf_offset.astype(np.int32),
                               device=lv.device)
         return lv.to(torch.int32) + off[None, :]
+
+    def digest(self) -> str:
+        """Structural sha256 of (T, θ): leaf codes, global indexing, masses,
+        in-bag state and tree weights — the reference's
+        ``EnsembleContext.digest``, string for string.  Snapshot load
+        rebuilds the context from saved arrays and checks the digest
+        recorded at save time.  Every array is hashed as a host copy in the
+        reference's dtype (leaf codes int32, offsets and OOB counts int64,
+        leaf counts and in-bag counts int32, masses and tree weights
+        float64, OOB flags bool), so an archive written by either package
+        validates in the other."""
+        h = hashlib.sha256()
+        h.update(str((self.total_leaves, self.n_train)).encode())
+        for a, dt in ((self.leaves, np.int32), (self.leaf_offset, np.int64),
+                      (self.n_leaves, np.int32),
+                      (self.leaf_mass, np.float64),
+                      (self.leaf_mass_inbag, np.float64),
+                      (self.inbag, np.int32), (self.oob, np.bool_),
+                      (self.oob_count, np.int64),
+                      (self.tree_weights, np.float64)):
+            if a is None:
+                h.update(b"none")
+                continue
+            a = _host(a, dt)
+            h.update(str((a.shape, a.dtype.str)).encode())
+            h.update(a.tobytes())
+        return h.hexdigest()
 
     @classmethod
     def from_forest(cls, forest, X: Optional[np.ndarray] = None,

@@ -41,6 +41,7 @@ from scipy.sparse.linalg import LinearOperator
 from ..kernels.block_prox.ops import (LEAF_DENSITY_MAX, LeafIndex,
                                       block_prox, build_leaf_index,
                                       leaf_density)
+from ..obs.metrics import global_registry
 from . import torch_ops
 from .context import EnsembleContext
 from .factorization import (full_kernel, prefix_leaf_contraction,
@@ -506,7 +507,9 @@ class ProximityEngine:
     def memory_bytes(self) -> dict:
         """Resident factor bytes per component (dense factors and, once
         built, the block kernel's leaf index on the device; CSR maps and
-        leaf values on the host)."""
+        leaf values on the host).  The dense factors, Q, W and the total
+        are also pushed to the process-wide metrics registry (the
+        ``engine_memory_bytes{component}`` gauge family)."""
         def nbytes(t):
             return t.numel() * t.element_size()
         dense = nbytes(self.gl) + nbytes(self.q) + \
@@ -518,6 +521,11 @@ class ProximityEngine:
         index = self._leaf_index
         out["leaf_index"] = 0 if index is None else index.nbytes
         out["total"] = sum(out.values())
+        g = global_registry().gauge("engine_memory_bytes",
+                                    "resident engine factor bytes",
+                                    labels=("component",))
+        for comp in ("dense_factors", "Q", "W", "total"):
+            g.labels(component=comp).set(float(out[comp]))
         return out
 
 

@@ -10,16 +10,43 @@ host reference ``chip_smoke.py`` holds the device ops against.
 """
 from __future__ import annotations
 
+import hashlib
 from typing import Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sp
+import torch
 from scipy.sparse.linalg import LinearOperator
 
 from ..forest.trees import prefix_leaf_map
 
-__all__ = ["full_kernel", "kernel_block", "kernel_matvec_operator",
-           "topk_neighbors", "prefix_leaf_contraction", "naive_swlc"]
+__all__ = ["factor_digest", "full_kernel", "kernel_block",
+           "kernel_matvec_operator", "topk_neighbors",
+           "prefix_leaf_contraction", "naive_swlc"]
+
+
+def factor_digest(gl, q, w=None) -> str:
+    """Structural sha256 of the factored form of P = Q Wᵀ — the reference's
+    ``factor_digest``, string for string.
+
+    Hashes shapes, dtypes and exact bytes of the dense factor arrays
+    (global leaves, query weights, reference weights when asymmetric), so
+    two engines with equal digests produce identical kernels.  Tensors are
+    hashed as host copies in the reference's dtypes (``gl`` int64, ``q`` and
+    ``w`` float64), so the digest of a port engine equals the reference's
+    for the same factors.
+    """
+    h = hashlib.sha256()
+    parts = ((gl, np.int64), (q, np.float64))
+    if w is not None and w is not q:
+        parts += ((w, np.float64),)
+    for a, dt in parts:
+        if isinstance(a, torch.Tensor):
+            a = a.detach().cpu().numpy()
+        a = np.ascontiguousarray(a, dtype=dt)
+        h.update(str((a.shape, a.dtype.str)).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
 
 
 def full_kernel(Q: sp.csr_matrix, W: sp.csr_matrix,

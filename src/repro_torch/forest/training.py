@@ -32,12 +32,15 @@ numpy (and native) backend on integer payloads (bootstrap counts, class
 labels, integer targets), which float32 histograms hold exactly; on
 continuous payloads (gradient-boosting residuals) the float32 device
 histograms agree within the reference's ``jax`` backend bounds.  The
-reference's native C branch, its out-of-core (memmap) path and its metrics
-calls are not part of this copy.
+reference's native C branch and its out-of-core (memmap) path are not part
+of this copy.  Each level is timed into the process-wide metrics registry
+(``train_level_seconds{backend}``, ``train_levels_total{backend}``,
+``train_frontier_nodes``, ``train_frontier_rows``) from host values alone.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -45,6 +48,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.histogram import ops as hops
+from ..obs.metrics import global_registry
 from .trees import Tree
 
 __all__ = ["TreeParams", "Binner", "fit_tree_binned", "fit_forest_binned",
@@ -695,16 +699,34 @@ def _grow_trees(Xb: np.ndarray, y: np.ndarray, tasks: Sequence[tuple],
         np.concatenate([t[1] for t in tasks]), dtype=np.float64)
     bounds_g = np.concatenate(
         [[0], np.cumsum([len(t[0]) for t in tasks])]).astype(np.int64)
+    # per-level profiling into the process-wide registry (no-op when it is
+    # disabled): host values this loop already holds, no device sync (on
+    # the torch branch a level's time is the host loop's, whose device
+    # work may still be queued when it is read)
+    _reg = global_registry()
+    _h_level = _reg.histogram(
+        "train_level_seconds", "level-synchronous growth: one level",
+        labels=("backend",)).labels(backend=backend)
+    _c_levels = _reg.counter(
+        "train_levels_total", "tree levels grown",
+        labels=("backend",)).labels(backend=backend)
+    _g_nodes = _reg.gauge("train_frontier_nodes",
+                          "active nodes in the last-grown level")
+    _g_rows = _reg.gauge("train_frontier_rows",
+                         "frontier sample rows in the last-grown level")
 
     depth = 0
     while live and depth < params.max_depth:
         depth += 1
+        _t_level = time.perf_counter()
         if use_torch:
             rows_dev, w_dev = as_dev(rows_g), as_dev(w_g)
         g_sizes = np.array([len(acts[t]) for t in live], np.int64)
         node_off = np.concatenate([[0], np.cumsum(g_sizes)]).astype(np.int64)
         G = int(node_off[-1])
         y_g = yc[rows_g]
+        _g_nodes.set(G)
+        _g_rows.set(len(rows_g))
 
         best_gain = np.empty(G)
         best_f = np.empty(G, np.int64)
@@ -955,5 +977,7 @@ def _grow_trees(Xb: np.ndarray, y: np.ndarray, tasks: Sequence[tuple],
             rows_g = np.empty(0, np.int64)
             w_g = np.empty(0, np.float64)
             bounds_g = np.zeros(1, np.int64)
+        _h_level.observe(time.perf_counter() - _t_level)
+        _c_levels.inc()
 
     return [st.to_tree() for st in stores]

@@ -125,18 +125,25 @@ def test_cuda_requested_without_a_card_raises(data, monkeypatch):
         resolve_device("meta")
 
 
-def test_unported_options_raise(data):
-    """Gradient boosting and the instance-hardness rule are ported now;
-    snapshots, serving and the reference's own trainer backends are not,
-    and raise."""
+def test_unported_options_raise(data, tmp_path):
+    """Gradient boosting, the instance-hardness rule, snapshots and serving
+    are ported now; float32 kernels and the reference's own trainer
+    backends are not, and raise."""
+    from repro_torch.core.snapshot import SnapshotError
     Xtr, ytr, _, _ = data
     fk = ForestKernel(kernel_method="ih", n_trees=2, device="cpu").fit(Xtr,
                                                                        ytr)
-    for call in (lambda: fk.save("unused.npz"),
-                 lambda: ForestKernel.load("unused.npz"), fk.serve,
-                 fk.serve_tiered):
-        with pytest.raises(NotImplementedError, match="serving slice"):
-            call()
+    path = tmp_path / "fk.npz"
+    fk.save(path)
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files}
+    manifest = json.loads(bytes(arrays["manifest"].tobytes()).decode())
+    manifest["config"]["dtype"] = "float32"
+    arrays["manifest"] = np.frombuffer(json.dumps(manifest).encode(),
+                                       dtype=np.uint8)
+    np.savez(tmp_path / "f32.npz", **arrays)
+    with pytest.raises(SnapshotError, match="float32"):
+        ForestKernel.load(tmp_path / "f32.npz", device="cpu")
     with pytest.raises(ValueError, match="tree backend"):
         ForestKernel(tree_backend="native", n_trees=2,
                      device="cpu").fit(Xtr, ytr)

@@ -750,3 +750,118 @@ def test_gbt_on_the_card_is_deterministic_and_agrees(dev):
                                 **kw).fit(X, y)
     err = (a.predict(X) - host.predict(X)).abs().max().item()
     assert err <= 0.05 * y.std()
+
+
+# ------------------------------------------------ snapshots and serving
+
+def _serving_pair():
+    """A card kernel with its online propagation and embedding states, and
+    an OOS batch."""
+    from repro_torch.applications.embed import ProximityEmbedding
+    from repro_torch.core.api import ForestKernel
+    from repro_torch.data.synthetic import gaussian_classes, train_test_split
+    X, y = gaussian_classes(3000, d=10, n_classes=4, seed=6)
+    Xtr, ytr, Xte, _ = train_test_split(X, y, test_frac=0.2, seed=2)
+    gpu = ForestKernel(kernel_method="gap", n_trees=12, seed=1,
+                       device="cuda").fit(Xtr, ytr)
+    labeled = np.random.default_rng(1).random(len(ytr)) < 0.2
+    prop = gpu.propagate_labels(labeled, online=True)
+    emb = ProximityEmbedding(n_components=2).fit(gpu.engine)
+    return gpu, prop, emb, np.ascontiguousarray(Xte[:60])
+
+
+def test_server_tick_routes_once_on_the_card(dev):
+    """A tick holding all five kinds launches K1 once (the tick's batch)
+    and K2 for ``topk`` and ``outlier``; results are host numpy arrays
+    that share no memory with the slot buffer, and equal direct engine
+    calls on the card."""
+    from repro_torch.applications.outliers import train_outlier_stats
+    gpu, prop, emb, Xq = _serving_pair()
+    srv = gpu.serve(n_slots=64, propagator=prop, embedding=emb)
+    train_outlier_stats(gpu.engine, gpu.ctx.y)      # training-side stats
+    reqs = [("predict", Xq[:5]), ("topk", Xq[5:13], 4),
+            ("outlier", Xq[13:20]), ("propagate", Xq[20:30]),
+            ("embed", Xq[30:40])]
+    torch.cuda.synchronize()
+    k1, k2 = route.launches, block_prox.launches
+    res = srv.serve(reqs)
+    torch.cuda.synchronize()
+    assert srv.ticks == 1
+    assert route.launches - k1 == 1
+    assert block_prox.launches - k2 >= 2
+    for r in srv.finished:
+        for v in r.result.values():
+            assert isinstance(v, np.ndarray)
+            assert not np.shares_memory(v, srv._slot_X)
+    want = gpu.engine.predict(gpu.ctx.y, n_classes=4,
+                              X=np.ascontiguousarray(Xq[:5])).argmax(1)
+    np.testing.assert_array_equal(res[0]["labels"], want.cpu().numpy())
+    idx, val = gpu.engine.topk(k=4, X=np.ascontiguousarray(Xq[5:13]))
+    np.testing.assert_array_equal(res[1]["indices"], idx.cpu().numpy())
+    np.testing.assert_allclose(res[1]["values"], val.cpu().numpy(),
+                               rtol=0, atol=1e-12)
+    # the engine timer runs to the end of the card's work and is labelled
+    # with the device type
+    h = srv.registry.histogram("engine_op_seconds",
+                               labels=("op", "backend", "tier"))
+    assert h.labels(op="predict", backend="cuda", tier="server").count == 1
+
+
+def test_async_tiered_on_the_card_matches_sync(dev):
+    """Worker threads on the default stream give the synchronous drain's
+    answers, and every request is answered."""
+    gpu, prop, emb, Xq = _serving_pair()
+    ce = gpu.compress(n_prototypes=5, k=40)
+    reqs = [("predict", Xq[i * 6:(i + 1) * 6]) for i in range(8)] + \
+        [("topk", Xq[48:56], 4), ("outlier", Xq[:8]),
+         ("embed", Xq[8:16])]
+
+    def fresh():
+        return gpu.serve_tiered(prefix_depth=3, compressed_engine=ce,
+                                n_slots=16, escalate_margin=0.5,
+                                propagator=prop, embedding=emb)
+
+    sync_res = fresh().serve(reqs)
+    srv = fresh().start()
+    try:
+        out = srv.wait([srv.submit(*r) for r in reqs], timeout=120.0)
+    finally:
+        srv.stop()
+    assert not any(t.is_alive() for t in srv._worker_threads.values())
+    for a, b in zip(sync_res, out):
+        assert b is not None
+        for key in a:
+            np.testing.assert_allclose(a[key], b[key], rtol=0, atol=1e-10)
+
+
+def test_snapshot_round_trip_on_the_card(dev, tmp_path):
+    """Save on the card, load on the card: same digests, the load routes
+    nothing, the block kernel's ops give the saved kernel's bits, and the
+    segment-sum products (``index_add_`` atomics: last bits vary from run
+    to run) agree within 1e-12."""
+    from repro_torch.core.api import ForestKernel
+    from repro_torch.core.factorization import factor_digest
+    gpu, _, _, Xq = _serving_pair()
+    path = tmp_path / "card.npz"
+    manifest = gpu.save(path)
+    k1 = route.launches
+    back = ForestKernel.load(path, device="cuda")
+    torch.cuda.synchronize()
+    assert route.launches == k1
+    assert back.engine.device.type == "cuda"
+    assert back.ctx.digest() == manifest["ctx_digest"]
+    assert factor_digest(back.engine.gl, back.engine.q, back.engine.w) == \
+        manifest["factor_digest"]
+    y = gpu.ctx.y
+    for a, b in [(gpu.kernel_block(np.arange(64)),
+                  back.kernel_block(np.arange(64))),
+                 (gpu.engine.squared_row_sums(y, 4, X=Xq),
+                  back.engine.squared_row_sums(y, 4, X=Xq))]:
+        assert torch.equal(a, b)
+    torch.testing.assert_close(back.engine.predict(y, 4, X=Xq),
+                               gpu.engine.predict(y, 4, X=Xq), rtol=0,
+                               atol=1e-12)
+    assert torch.equal(back.predict(Xq), gpu.predict(Xq))
+    i1, v1 = gpu.topk(k=7, X=Xq)
+    i2, v2 = back.topk(k=7, X=Xq)
+    assert torch.equal(i1, i2) and torch.equal(v1, v2)

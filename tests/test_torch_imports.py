@@ -35,19 +35,25 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-# the application layer and the core pieces it stands on
+# the application layer, and the observability, snapshot and serving
+# layers over it
 SLICE_MODULES = (
     "repro_torch.applications", "repro_torch.applications.embed",
     "repro_torch.applications.imputation",
     "repro_torch.applications.outliers",
     "repro_torch.applications.propagate",
-    "repro_torch.applications.prototypes")
+    "repro_torch.applications.prototypes",
+    "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.obs.trace",
+    "repro_torch.obs.profile", "repro_torch.obs.http",
+    "repro_torch.core.snapshot", "repro_torch.serve",
+    "repro_torch.serve.proximity", "repro_torch.serve.reliability",
+    "repro_torch.serve_proximities")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
 def test_every_application_module_is_covered(module):
-    """The import check above walks the package; the application modules
-    are among what it imports."""
+    """The import check above walks the package; the application, obs,
+    snapshot and serving modules are among what it imports."""
     assert module in _module_names()
 
 
