@@ -26,7 +26,7 @@
    random-label forest (leaves of about 3 samples) and on a GBT stage's
    depth-6 tree, timed at 50,000 x 100 trees, 5,000 x 100 and 50,000 x 1
    tree; the proximity block within 1e-10 of its plain version at 512 and
-   671 rows x 50,000 x 100 (the train-side row blocks are 671 rows), on
+   640 rows x 50,000 x 100 (the train-side row blocks are 640 rows), on
    the deep forest and on the GBT forest, in both forms (leaf collisions
    on the engine's leaf index, dense) with the same bits, each form timed,
    and its share of the warm train-side steps; K2 also at the prefix
@@ -64,17 +64,35 @@
    tiered ladder from phase 7's prefix, compressed and full engines in
    async mode, and the ladder again under seeded chaos (no request lost);
    then holds every answer against a direct call on the engine of the
-   tier that gave it, and times K1 and K2 at a tick's 64 rows.
+   tier that gave it, and times K1 and K2 at a tick's 64 rows;
+9. drives the out-of-core row of ``benchmarks/bench_scaling.py
+   --out-of-core`` (its steps copied here): 1,000,000 x 20
+   ``gaussian_classes`` (5 classes, sep 0.8) generated into a memmap, RF
+   ``gap`` with 15 trees, ``max_depth`` 32, ``min_samples_leaf`` 3, a
+   scratch directory and a 512 MiB ``memory_budget_bytes``, counted and
+   timed stage by stage (streamed binning and staged-code training
+   through K3, the chunked context and the streamed CSR build, train-side
+   outlier scores over K2 blocks, one imputation iteration, a tiered
+   serving burst), each stage's device transient, host traced peak,
+   engine bytes and scratch files printed.  Check (a) first refits phase
+   1's kernel under a 32 MiB budget (every budgeted branch taken) and
+   holds it against phase 1's bit for bit (products within 1e-15); then
+   (b) the streamed codes, the CSR factors' digest, 1,024 rows' outlier
+   sums and scores against the host, the imputation, every served answer
+   against a direct call, each stage's device transient at most 4 GiB and
+   the scratch directory removed; (c) one K3 call on staged codes at the
+   root level against its plain version and the device-resident call.
 
 Last it prints one ``{"kernels": [...]}`` line (launches on the main, GBT,
-applications and serving paths, errors, kernel / plain / library times
-and the least time the card could take), the card's name and power limit,
-and as its last line ``{"ok": true, "device": {...}}``.
+applications, serving and out-of-core paths, errors, kernel / plain /
+library times and the least time the card could take), the card's name
+and power limit, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It exits non-zero at once when torch finds no CUDA device or when the
-port's sources are not beside it.  About 8 minutes on one H100, most of
-it the host computations the card's results are held against.
+port's sources are not beside it.  About 9 minutes on one H100, most of
+it the host computations the card's results are held against and the
+out-of-core row.
 """
 import dataclasses
 import json
@@ -109,6 +127,18 @@ N_SERVE_REQ, SERVE_SLOTS = 256, 64
 SERVE_MIX = (0.40, 0.25, 0.15, 0.10, 0.10)  # predict/topk/outlier/prop./embed
 MARGIN_TIE = 1e-9        # propagation labels may differ below this margin
 ATOL_EMBED = 1e-6        # embedding coordinates, after aligning signs
+# phase 9: the out-of-core row of benchmarks/bench_scaling.py --out-of-core
+OOC_ROWS, OOC_D, OOC_CLASSES, OOC_SEP = 1_000_000, 20, 5, 0.8
+OOC_TREES, OOC_DEPTH, OOC_LEAF = 15, 32, 3
+OOC_BUDGET = 512 << 20   # the row's memory_budget_bytes
+CHECK_BUDGET = 32 << 20  # check (a): every budgeted branch taken at 50k
+OOC_MISSING = 0.002      # imputation: NaN share of the copy
+OOC_PREFIX, OOC_PROTOS, OOC_PROTO_K, OOC_SLOTS = 4, 3, 10, 64
+OOC_REQS, OOC_KINDS = 16, ("predict", "predict", "topk", "outlier")
+OOC_WINDOW = 65_536      # rows of each streamed-code window checked
+OOC_TRANSIENT_MAX = 4096 << 20  # the row's own ceiling for a 512 MiB budget
+OOC_RTOL = 1e-10         # outlier sums and scores against the host
+ATOL_PRODUCT = 1e-15     # budgeted products (index_add_ atomics) vs phase 1
 TREE_FIELDS = ("feature", "threshold", "left", "right", "leaf_id", "value",
                "n_node_samples")
 
@@ -218,6 +248,396 @@ def same_bits(a, b):
         np.ascontiguousarray(b, np.float32).view(np.uint32))
 
 
+def gen_memmap_dataset(path, n, gaussian_classes):
+    """The out-of-core dataset, generated in 64 MiB row chunks straight into
+    a float64 memmap (chunk i drawn with seed i), as the reference's
+    ``benchmarks/bench_scaling.py::_gen_memmap_dataset`` does, so the full X
+    is never held in memory."""
+    X = np.memmap(path, dtype=np.float64, mode="w+", shape=(n, OOC_D))
+    y = np.empty(n, dtype=np.int64)
+    chunk = max(1, (64 << 20) // (8 * OOC_D))
+    for ci, i0 in enumerate(range(0, n, chunk)):
+        i1 = min(i0 + chunk, n)
+        X[i0:i1], y[i0:i1] = gaussian_classes(
+            i1 - i0, d=OOC_D, n_classes=OOC_CLASSES, sep=OOC_SEP, seed=ci)
+    X.flush()
+    return X, y
+
+
+def budget_check(torch, dev, fk, Xtr, ytr, Xq, Xte, rows):
+    """Check (a): phase 1's kernel again with a scratch directory and a
+    ``CHECK_BUDGET`` budget, at which every budgeted branch is taken,
+    against phase 1's in-memory kernel: trees, digests, blocks, top-k and
+    squared row sums bit for bit; products within ``ATOL_PRODUCT``."""
+    from repro_torch.core.api import ForestKernel
+    from repro_torch.core.factorization import factor_digest
+    eng = fk.engine
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ooc_check_") as scratch:
+        bk = ForestKernel(model_type="rf", kernel_method="gap",
+                          n_trees=N_TREES, n_bins=64, seed=0,
+                          device=str(dev), scratch_dir=scratch,
+                          memory_budget_bytes=CHECK_BUDGET).fit(Xtr, ytr)
+        be = bk.engine
+        chunks = {"context rows": bk._context_row_chunk(),
+                  "CSR build rows": be._factor_row_chunk(),
+                  "K2 block rows": be._op_row_chunk(4096),
+                  f"bucket columns of {N_CLASSES}": be._col_chunk(N_CLASSES),
+                  "bucket columns of 20": be._col_chunk(20)}
+        # each map spills when its own indices and data exceed the budget
+        spilled = {"Q": isinstance(be.Q.data, np.memmap),
+                   "W": isinstance(be.W.data, np.memmap)}
+        print(f"  check (a) chunks: {chunks}, spilled {spilled}, total "
+              f"leaves {be.total_leaves}", flush=True)
+        check(chunks["context rows"] < N_TRAIN, "context not chunked")
+        check(chunks["CSR build rows"] < N_TRAIN, "CSR build not chunked")
+        check(any(spilled.values()), "no CSR factor spilled to scratch")
+        check(chunks["K2 block rows"] < eng._op_row_chunk(4096),
+              "K2 blocks not cut by the budget")
+        check(chunks["bucket columns of 20"] < 20,
+              "bucket table not split by columns")
+        same_trees(fk.forest.trees_, bk.forest.trees_, "budgeted forest")
+        check(bk.ctx.digest() == fk.ctx.digest(), "context digest differs")
+        check(factor_digest(be.gl, be.q, be.w)
+              == factor_digest(eng.gl, eng.q, eng.w), "factor digest differs")
+        bitwise = {
+            "kernel_block": (fk.kernel_block(rows), bk.kernel_block(rows)),
+            "topk_oos": (fk.topk(k=K, X=Xq), bk.topk(k=K, X=Xq)),
+            "topk_train": (fk.topk(k=K), bk.topk(k=K)),
+            "squared_row_sums_train": (
+                eng.squared_row_sums(ytr, N_CLASSES),
+                be.squared_row_sums(ytr, N_CLASSES)),
+            "squared_row_sums_oos": (
+                eng.squared_row_sums(ytr, N_CLASSES, X=Xte),
+                be.squared_row_sums(ytr, N_CLASSES, X=Xte))}
+        for name, (a, b) in bitwise.items():
+            pairs = zip(a, b) if isinstance(a, tuple) else [(a, b)]
+            check(all(torch.equal(u, v) for u, v in pairs),
+                  f"budgeted {name} differs from the in-memory kernel's")
+        V = np.random.default_rng(9).random((N_TRAIN, 20))
+        errs = {"predict_train": max_err(eng.predict(ytr, N_CLASSES),
+                                         be.predict(ytr, N_CLASSES)),
+                "predict_oos": max_err(eng.predict(ytr, N_CLASSES, X=Xte),
+                                       be.predict(ytr, N_CLASSES, X=Xte)),
+                "matmat_20": max_err(eng.matmat(V), be.matmat(V))}
+        for name, e in errs.items():
+            check(e <= ATOL_PRODUCT, f"budgeted {name} error {e}")
+        left = sorted(os.listdir(scratch))
+        check(left == [], f"scratch files left after the fit: {left}")
+        mem = be.memory_bytes()
+    print(f"phase 9 check (a), {CHECK_BUDGET / 2 ** 20:g} MiB budget at "
+          f"{N_TRAIN} x {N_TREES} trees ({time.perf_counter() - t:.1f} s): "
+          "trees, digests, " + ", ".join(bitwise) + " bit for bit; "
+          + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+          + f"; engine {mem}", flush=True)
+
+
+def phase9(torch, dev, n_rows, wrappers):
+    """The out-of-core row of the reference (``benchmarks/bench_scaling.py
+    --out-of-core``) through the port's ``ForestKernel`` on the card:
+    stages timed, counted and measured (device transient, host traced
+    peak, engine bytes, scratch files), then checked.  Returns the stages'
+    launches."""
+    import tracemalloc
+    from repro_torch.applications.outliers import oos_outlier_scores
+    from repro_torch.core.api import ForestKernel
+    from repro_torch.core.factorization import factor_digest
+    from repro_torch.core.snapshot import _dense_factor_from_csr
+    from repro_torch.data.synthetic import gaussian_classes
+    from repro_torch.forest.training import Binner
+    from repro_torch.kernels.histogram.ops import histogram
+    from repro_torch.kernels.histogram.ref import histogram_ref
+    t9 = time.perf_counter()
+
+    def counts():
+        return {k: f.launches for k, f in wrappers.items()}
+
+    tracemalloc.start()
+    stages = {}
+    scratch_dir = None
+    try:
+        with tempfile.TemporaryDirectory(prefix="ooc_") as scratch:
+            scratch_dir = scratch
+            t = time.perf_counter()
+            X, y = gen_memmap_dataset(os.path.join(scratch, "X.mm"), n_rows,
+                                      gaussian_classes)
+            print(f"phase 9: {n_rows} x {OOC_D} gaussian_classes "
+                  f"({OOC_CLASSES} classes, sep {OOC_SEP}) generated into a "
+                  f"memmap in {time.perf_counter() - t:.1f} s", flush=True)
+            rng = np.random.default_rng(0)
+            fk9 = ForestKernel(kernel_method="gap", n_trees=OOC_TREES,
+                               max_depth=OOC_DEPTH,
+                               min_samples_leaf=OOC_LEAF, n_bins=64, seed=0,
+                               device=str(dev), scratch_dir=scratch,
+                               memory_budget_bytes=OOC_BUDGET)
+
+            def stage(name, fn):
+                torch.cuda.synchronize()
+                before = counts()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                tracemalloc.reset_peak()
+                t = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t
+                after = counts()
+                st = {"s": sec, "launches": "/".join(
+                          str(after[k] - before[k]) for k in wrappers),
+                      "device_transient": torch.cuda.max_memory_allocated()
+                      - base,
+                      "host_peak": tracemalloc.get_traced_memory()[1],
+                      "engine": None if fk9.engine is None
+                      else fk9.engine.memory_bytes(),
+                      "files": sorted(os.listdir(scratch))}
+                stages[name] = st
+                print(f"  stage {name}: {sec:.3f} s, K1/K2/K3/K4 "
+                      f"{st['launches']}, device transient "
+                      f"{st['device_transient'] / 2 ** 20:.1f} MiB, host "
+                      f"traced peak {st['host_peak'] / 2 ** 20:.1f} MiB, "
+                      f"engine {st['engine']}, scratch files {st['files']}",
+                      flush=True)
+                return out
+
+            for f in wrappers.values():
+                f.launches = 0
+            # 1. streamed binning, then staged-code training; the streamed
+            # codes are kept (their file is unlinked by the fit) for the
+            # checks below
+            kept = []
+            real_tm = Binner.transform_memmap
+
+            def keep_tm(self, X_, path):
+                kept.append(real_tm(self, X_, path))
+                return kept[-1]
+            Binner.transform_memmap = keep_tm
+            try:
+                stage("fit_forest", lambda: fk9.fit_forest(X, y))
+            finally:
+                Binner.transform_memmap = real_tm
+            check(stages["fit_forest"]["files"] == ["X.mm"],
+                  "the binned-code scratch file outlived the fit")
+            # 2. chunked K1, streamed (and, past the budget, spilled) CSR
+            stage("build_kernel_cache", fk9.build_kernel_cache)
+            eng9 = fk9.engine
+            # 3. train-side outlier scores: N x N in K2 blocks; the class-
+            # bucketed squared sums are kept for the checks
+            sq_kept = []
+            real_srs = eng9.squared_row_sums
+
+            def keep_srs(*a, **k):
+                sq_kept.append(real_srs(*a, **k))
+                return sq_kept[-1]
+            eng9.squared_row_sums = keep_srs
+            try:
+                scores = stage("outlier_scores", fk9.outlier_scores)
+            finally:
+                del eng9.squared_row_sums
+
+            # 4. one imputation iteration on a NaN-injected copy
+            def impute():
+                Xnan = np.asarray(X).copy()
+                n_miss = max(1, int(n_rows * OOC_D * OOC_MISSING))
+                Xnan[rng.integers(0, n_rows, n_miss),
+                     rng.integers(0, OOC_D, n_miss)] = np.nan
+                return fk9.impute(Xnan, y, n_iter=1)
+            imp = stage("impute", impute)
+            check(not np.isnan(imp.X_imputed_).any(),
+                  "imputation left a NaN")
+            n_missing = int(imp.missing_mask_.sum())
+            del imp
+
+            # 5. a tiered serving burst (shallow -> compressed -> full)
+            def serve():
+                srv = fk9.serve_tiered(prefix_depth=OOC_PREFIX,
+                                       n_prototypes=OOC_PROTOS,
+                                       proto_k=OOC_PROTO_K,
+                                       n_slots=OOC_SLOTS)
+                pool = [np.asarray(X[rng.integers(0, n_rows, OOC_SLOTS)])
+                        for _ in range(4)]
+                reqs = [(OOC_KINDS[i % 4], pool[i % 4])
+                        for i in range(OOC_REQS)]
+                srv.start()
+                try:
+                    uids = [srv.submit(kd, Xr, k=K) for kd, Xr in reqs]
+                    srv.wait(uids, timeout=600.0)
+                finally:
+                    srv.stop()
+                return srv, reqs, uids
+            srv, reqs, uids = stage("serve_tiered", serve)
+            ooc_launches = counts()
+            tracemalloc.stop()
+
+            # ---- checks (b) ----
+            binner = fk9.forest.binner_
+            codes = kept[0]
+            wins = (0, (n_rows - OOC_WINDOW) // 2, n_rows - OOC_WINDOW)
+            for w0 in wins:
+                check(np.array_equal(codes[w0:w0 + OOC_WINDOW],
+                                     binner.transform(np.asarray(
+                                         X[w0:w0 + OOC_WINDOW]))),
+                      f"streamed codes differ in window {w0}")
+            T = eng9.gl.shape[1]
+            q_h = _dense_factor_from_csr(
+                np.asarray(eng9.Q.data), np.asarray(eng9.Q.indices),
+                np.asarray(eng9.Q.indptr), eng9.ctx.leaf_offset, T)
+            w_h = _dense_factor_from_csr(
+                np.asarray(eng9.W.data), np.asarray(eng9.W.indices),
+                np.asarray(eng9.W.indptr), eng9.ctx.leaf_offset, T)
+            dig = factor_digest(eng9.gl, eng9.q, eng9.w)
+            check(factor_digest(eng9.gl, q_h, w_h) == dig,
+                  "the streamed CSR factors differ from the device factors")
+            del q_h, w_h
+            # outliers: the kept class-bucketed squared sums of 1,024 stated
+            # rows against the host CSR product, and the scores against the
+            # host's median/MAD normalization of the kept sums
+            chk = np.sort(np.random.default_rng(2).choice(
+                n_rows, CHECK_ROWS, replace=False))
+            B = (eng9.Q[chk] @ eng9.W.T.tocsc()).tocsr()
+            r_of = np.repeat(np.arange(len(chk)), np.diff(B.indptr))
+            host_sq = np.bincount(
+                r_of * OOC_CLASSES + y[B.indices], weights=B.data ** 2,
+                minlength=len(chk) * OOC_CLASSES).reshape(-1, OOC_CLASSES)
+            sq = sq_kept[0].cpu().numpy()
+            sq_rel = float((np.abs(sq[chk] - host_sq)
+                            / np.maximum(np.abs(host_sq), 1e-300)).max())
+            check(sq_rel <= OOC_RTOL, f"outlier squared sums rel {sq_rel}")
+            cnt = np.bincount(y, minlength=OOC_CLASSES).astype(np.float64)
+            own = sq[np.arange(n_rows), y]
+            with np.errstate(over="ignore"):    # capped below, as on card
+                raw = np.minimum(cnt[y] / np.maximum(own,
+                                                     np.finfo(float).tiny),
+                                 float(n_rows) ** 2)
+            want = np.empty(n_rows)
+            for c in range(OOC_CLASSES):
+                m = y == c
+                med = np.median(raw[m])
+                mad = max(np.median(np.abs(raw[m] - med)),
+                          np.finfo(float).tiny)
+                want[m] = (raw[m] - med) / mad
+            got = scores.cpu().numpy()
+            check(got.shape == (n_rows,) and np.isfinite(got).all(),
+                  "outlier scores not finite or of the wrong shape")
+            sc_rel = float((np.abs(got[chk] - want[chk])
+                            / np.maximum(np.abs(want[chk]), 1.0)).max())
+            check(sc_rel <= OOC_RTOL, f"outlier scores rel {sc_rel}")
+            # serving: every answer against a direct call on its tier
+            tiers = {t.name: t for t in srv.tiers}
+            s_err = {"topk values": 0.0, "outlier scores": 0.0}
+            finals = []
+            for (kind, Xr), u in zip(reqs, uids):
+                r = srv._requests[u]
+                check(r.done.is_set() and r.result is not None,
+                      "the tiered server lost a request")
+                tier = tiers[r.final_tier]
+                e, yv = tier.engine, tier.y
+                finals.append(r.final_tier)
+                if kind == "predict":
+                    want_l = e.predict(yv, OOC_CLASSES, X=Xr).argmax(1)
+                    check(np.array_equal(r.result["labels"],
+                                         want_l.cpu().numpy()),
+                          f"tier {r.final_tier} predict labels differ")
+                elif kind == "topk":
+                    i_, v_ = e.topk(k=K, X=Xr)
+                    i_, v_ = i_.cpu().numpy(), v_.cpu().numpy()
+                    cols = getattr(e, "prototype_indices_", None)
+                    if cols is not None:
+                        i_ = np.where(v_ > 0, cols[i_], -1)
+                    check(np.array_equal(r.result["indices"], i_),
+                          f"tier {r.final_tier} topk ids differ")
+                    s_err["topk values"] = max(s_err["topk values"], float(
+                        np.abs(r.result["values"] - v_).max()))
+                else:
+                    s_err["outlier scores"] = max(
+                        s_err["outlier scores"], float(np.abs(
+                            r.result["scores"] - oos_outlier_scores(
+                                e, yv, Xr).cpu().numpy()).max()))
+            check(s_err["topk values"] <= 1e-12 and
+                  s_err["outlier scores"] <= 1e-10, f"serving {s_err}")
+            for name, st in stages.items():
+                check(st["device_transient"] <= OOC_TRANSIENT_MAX,
+                      f"stage {name} device transient "
+                      f"{st['device_transient']} > {OOC_TRANSIENT_MAX}")
+
+            # ---- check (c): K3 on staged codes at the root level ----
+            inbag = fk9.forest.inbag_
+            rows_t = [np.flatnonzero(inbag[t]) for t in range(OOC_TREES)]
+            rows_cat = np.concatenate(rows_t)
+            m3 = len(rows_cat)
+            bounds = np.concatenate([[0], np.cumsum([len(r) for r in rows_t])])
+            n_bins = binner.n_bins
+            y_d = torch.as_tensor(y[rows_cat].astype(np.int32), device=dev)
+            w_d = torch.as_tensor(np.concatenate(
+                [inbag[t, r] for t, r in enumerate(rows_t)]),
+                dtype=torch.float32, device=dev)
+
+            def staged_codes():
+                buf = torch.empty((m3, OOC_D), dtype=torch.uint8,
+                                  pin_memory=True)
+                np.take(codes, rows_cat, axis=0, out=buf.numpy(),
+                        mode="clip")
+                return buf.to(dev, non_blocking=True)
+            t = time.perf_counter()
+            xs = staged_codes()
+            torch.cuda.synchronize()
+            stage_s = time.perf_counter() - t
+            resident = torch.as_tensor(np.asarray(codes), device=dev)
+            rows_d = torch.as_tensor(rows_cat, device=dev)
+            span = (int(rows_cat.min()), int(rows_cat.max()))
+
+            def k3_staged():
+                return histogram(xs, None, y_d, w_d, OOC_TREES, n_bins,
+                                 OOC_CLASSES, bounds=bounds)
+
+            def k3_resident():
+                return histogram(resident, None, y_d, w_d, OOC_TREES,
+                                 n_bins, OOC_CLASSES, rows=rows_d,
+                                 bounds=bounds, row_range=span)
+            h_st = k3_staged()
+            node_d = torch.as_tensor(np.repeat(
+                np.arange(OOC_TREES, dtype=np.int32), np.diff(bounds)),
+                device=dev)
+            k3_err = max_err(h_st, histogram_ref(xs, node_d, y_d, w_d,
+                                                 OOC_TREES, n_bins,
+                                                 OOC_CLASSES))
+            check(k3_err == 0.0, "staged K3 != plain version")
+            check(torch.equal(h_st, k3_resident()),
+                  "staged K3 != K3 on device-resident codes")
+            st_ms, res_ms = cuda_ms(torch, k3_staged, 5), \
+                cuda_ms(torch, k3_resident, 5)
+            del xs, resident, rows_d, codes, kept
+        check(not os.path.exists(scratch_dir), "scratch dir not removed")
+    finally:
+        if tracemalloc.is_tracing():
+            tracemalloc.stop()
+        if scratch_dir is not None and os.path.exists(scratch_dir):
+            print(f"phase 9: scratch dir {scratch_dir} left", flush=True)
+    print(f"phase 9 checks (b): streamed codes equal Binner.transform on "
+          f"windows {wins} of {OOC_WINDOW}; CSR factors' digest equals the "
+          f"device factors' ({dig[:12]}); outlier squared sums on "
+          f"{CHECK_ROWS} rows rel err {sq_rel:.1e}, scores rel err "
+          f"{sc_rel:.1e}; {n_missing} NaN imputed, none left; "
+          f"{OOC_REQS} served answers equal direct calls (final tiers "
+          + ", ".join(f"{t} {finals.count(t)}" for t in sorted(set(finals)))
+          + f"; topk values {s_err['topk values']:.1e}, outlier scores "
+          f"{s_err['outlier scores']:.1e}); scratch dir removed", flush=True)
+    print(f"phase 9 check (c): K3 on staged codes at the root level "
+          f"({OOC_TREES} nodes x {m3} instances x {OOC_D} x {n_bins} x "
+          f"{OOC_CLASSES}) equals its plain version (err {k3_err}) and the "
+          f"device-resident call bit for bit; {res_ms:.3f} ms a call "
+          f"resident, {st_ms:.3f} ms staged, host gather + copy "
+          f"{stage_s:.3f} s", flush=True)
+    print(f"phase 9 ({n_rows} rows) stages: " + ", ".join(
+        f"{k} {v['s']:.3f} s" for k, v in stages.items())
+        + f"; total {sum(v['s'] for v in stages.values()):.3f} s; launches "
+        f"{ooc_launches}; phase 9 wall {time.perf_counter() - t9:.1f} s",
+        flush=True)
+    for name in ("leaf_route", "block_prox", "histogram"):
+        check(ooc_launches[name] > 0,
+              f"{name} was not launched on the out-of-core path")
+    return ooc_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -227,7 +647,6 @@ def main() -> int:
         print(f"chip_smoke: no port sources under {SRC}", file=sys.stderr)
         return 1
     sys.path.insert(0, SRC)
-    from repro_torch.core import engine as eng_mod
     from repro_torch.core.api import ForestKernel
     from repro_torch.core.factorization import kernel_block, topk_neighbors
     from repro_torch.data.synthetic import (friedman1, gaussian_classes,
@@ -614,11 +1033,11 @@ def main() -> int:
 
     # K2 in both forms on one engine's factors: the leaf-collision form on
     # its leaf index and the dense form, at the timed 512-row block and at
-    # the 671-row train-side block; same bits, within ATOL_BLOCK of plain
+    # the 640-row train-side block; same bits, within ATOL_BLOCK of plain
     index = eng.leaf_index()
     idx_ms = cuda_ms(torch, lambda: build_leaf_index(
         eng.gl, eng.w, n_leaves=eng.total_leaves), 3)
-    train_rows = max(1, eng_mod._BLOCK_BYTES // (8 * eng.n_ref))
+    train_rows = eng._op_row_chunk(4096)
 
     def k2_case(name, e, gq, qq):
         """Both forms of K2 for query factors ``gq``/``qq`` against engine
@@ -1496,6 +1915,10 @@ def main() -> int:
           flush=True)
     print(f"phase 8 wall: {time.perf_counter() - t8:.1f} s", flush=True)
 
+    # ---- phase 9: the out-of-core pipeline on the card, counted ----
+    budget_check(torch, dev, fk, Xtr, ytr, Xq, Xte, rows)
+    ooc_launches = phase9(torch, dev, OOC_ROWS, wrappers)
+
     # ---- bounds, from this run's shapes and data ----
     # K1 reads X once, each real node's 16-byte record once (not the
     # padding up to M) and writes the (n, T) int32 leaves
@@ -1537,7 +1960,7 @@ def main() -> int:
 
     def total(name):
         return launches[name] + gbt_launches[name] + app_launches[name] \
-            + serve_launches[name]
+            + serve_launches[name] + ooc_launches[name]
     kernels = [
         {"name": "leaf_route", "route": "cuda",
          "source": "src/repro_torch/kernels/leaf_route/csrc/leaf_route.cu",
@@ -1597,9 +2020,9 @@ def main() -> int:
           f"{k4_alt_ms:.3f} ms a call, {k4_alt_dev:.3f} ms on the device, "
           f"same bits)")
     print("launches (main path + GBT path + applications path + serving "
-          "path): " + ", ".join(f"{k} {launches[k]} + {gbt_launches[k]} + "
-                                f"{app_launches[k]} + {serve_launches[k]}"
-                                for k in wrappers))
+          "path + out-of-core path): " + ", ".join(
+              f"{k} {launches[k]} + {gbt_launches[k]} + {app_launches[k]} "
+              f"+ {serve_launches[k]} + {ooc_launches[k]}" for k in wrappers))
     print(f"wall: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

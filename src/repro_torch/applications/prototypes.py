@@ -142,7 +142,7 @@ class CompressedProximityEngine(ProximityEngine):
     gathered rows of the parent's, the host CSR maps row slices of the
     parent's, and the runtime state (the block kernel's leaf index
     included) is this view's own, apart from the shared OOS cache and its
-    lock.
+    lock; the memory budget is the parent's.
     """
 
     def __init__(self, parent: ProximityEngine, indices,
@@ -167,6 +167,8 @@ class CompressedProximityEngine(ProximityEngine):
         self.W = self.Q if parent.W is parent.Q else \
             parent.W[indices].tocsr()
         self.leaf_values = parent.leaf_values
+        self.memory_budget_bytes = parent.memory_budget_bytes
+        self._factor_scratch_dir = parent._factor_scratch_dir
         # one dict, one lock: the lock travels with the shared cache
         self._init_runtime_state(oos_cache=parent._oos_cache,
                                  oos_cache_size=parent._oos_cache_size,

@@ -22,6 +22,12 @@ depth-prefix engine, durable snapshots (``save``/``load``, in the
 reference's archive format, read and written by both packages) and
 serving (``serve``: a ``ProximityServer``; ``serve_tiered``: the
 shallow → compressed → full ladder).
+
+Out of core: ``scratch_dir`` streams the binned codes into a memmap there
+(removed when the fit ends) and is where the CSR factors spill;
+``memory_budget_bytes`` bounds the transients of the context build (K1
+routes the training set in row chunks), of the CSR build, and of the
+engine's ops.  The answers are the in-memory kernel's.
 """
 from __future__ import annotations
 
@@ -61,6 +67,10 @@ class ForestKernel:
     n_jobs: int = 0                  # host tree-fitting workers (0 = auto)
     device: str = "cuda"             # 'cuda' | 'cpu' (no silent fallback)
     tree_backend: str = "auto"       # trainer: 'auto' | 'numpy' | 'torch'
+    scratch_dir: Optional[str] = None        # out-of-core: disk scratch for
+    #                                          binned codes / factor spill
+    memory_budget_bytes: Optional[int] = None  # out-of-core: bound transient
+    #                                            build + op intermediates
 
     forest: Optional[BaseForest] = None
     ctx: Optional[EnsembleContext] = None
@@ -80,20 +90,31 @@ class ForestKernel:
             max_features=self.max_features, n_bins=self.n_bins,
             task=self.task, seed=self.seed, n_jobs=self.n_jobs,
             device=str(resolve_device(self.device)),
-            tree_backend=self.tree_backend)
+            tree_backend=self.tree_backend, xb_scratch=self.scratch_dir)
 
     def fit_forest(self, X: np.ndarray, y: np.ndarray) -> "ForestKernel":
         self.forest = self._forest()
         self.forest.fit(X, y)
         return self
 
+    def _context_row_chunk(self) -> Optional[int]:
+        """Routing and mass-accumulation chunk under the memory budget:
+        ~32 transient bytes a (row, tree) cell during the context build."""
+        if self.memory_budget_bytes is None:
+            return None
+        return max(1024, self.memory_budget_bytes // max(32 * self.n_trees,
+                                                         1))
+
     def build_kernel_cache(self) -> "ForestKernel":
         if self.forest is None:
             raise ValueError("call fit_forest first")
-        self.ctx = EnsembleContext.from_forest(self.forest)
+        self.ctx = EnsembleContext.from_forest(
+            self.forest, row_chunk=self._context_row_chunk())
         self.assignment = get_assignment(self.kernel_method, self.ctx)
-        self.engine = ProximityEngine(self.ctx, self.assignment,
-                                      forest=self.forest)
+        self.engine = ProximityEngine(
+            self.ctx, self.assignment, forest=self.forest,
+            memory_budget_bytes=self.memory_budget_bytes,
+            factor_scratch_dir=self.scratch_dir)
         self.Q_ = self.engine.Q
         self.W_ = self.engine.W
         return self

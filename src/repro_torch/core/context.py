@@ -93,12 +93,17 @@ class EnsembleContext:
 
     @classmethod
     def from_forest(cls, forest, X: Optional[np.ndarray] = None,
-                    y: Optional[np.ndarray] = None,
-                    leaves=None) -> "EnsembleContext":
+                    y: Optional[np.ndarray] = None, leaves=None,
+                    row_chunk: Optional[int] = None) -> "EnsembleContext":
         """Route ``X`` (default: the forest's training set) on the forest's
         device, unless its ``leaves`` are given, and accumulate the masses
         there with ``torch.bincount``.  Both masses are sums of integers, so
-        the order of the device's atomic adds does not change them."""
+        the order of the device's atomic adds does not change them.
+
+        ``row_chunk`` routes ``X`` (which may be disk-backed) and
+        accumulates the masses in row chunks of that size, bounding the
+        transient (chunk, T) footprint of an out-of-core build; the sums are
+        exact, so the digest is the same at every chunk size."""
         X = forest.X_ if X is None else X
         y = forest.y_ if y is None else y
         ta = forest.tree_arrays()
@@ -106,24 +111,36 @@ class EnsembleContext:
         if L >= 2 ** 31:
             raise ValueError(f"{L} leaves exceed int32 global leaf ids")
         dev = forest.route_tables_.device
+        n = len(X) if leaves is None else len(leaves)
+        T = len(ta.n_leaves)
+        step = max(1, n if row_chunk is None else int(row_chunk))
         if leaves is None:
-            leaves = forest.apply(X)                     # (N, T) on device
+            leaves = torch.empty((n, T), dtype=torch.int32, device=dev)
+            for i0 in range(0, n, step):
+                leaves[i0:i0 + step] = forest.apply(
+                    np.asarray(X[i0:i0 + step]))
         leaves = torch.as_tensor(leaves, device=dev).to(torch.int32)
-        n, T = leaves.shape
         off = torch.as_tensor(ta.leaf_offset.astype(np.int32), device=dev)
-        gl = leaves + off[None, :]
-        leaf_mass = torch.bincount(gl.reshape(-1), minlength=L) \
-            .to(torch.float64)
         inbag = forest.inbag_
-        if inbag is not None:
-            inbag_d = torch.as_tensor(inbag, dtype=torch.int32, device=dev)
-            leaf_mass_inbag = torch.bincount(
-                gl.t().reshape(-1), weights=inbag_d.reshape(-1).double(),
-                minlength=L)
+        inbag_d = None if inbag is None else torch.as_tensor(
+            inbag, dtype=torch.int32, device=dev)
+        mass = torch.zeros(L, dtype=torch.int64, device=dev)
+        mass_inbag = torch.zeros(L, dtype=torch.float64, device=dev)
+        for i0 in range(0, n, step):
+            gl = leaves[i0:i0 + step] + off[None, :]
+            mass += torch.bincount(gl.reshape(-1), minlength=L)
+            if inbag_d is not None:
+                mass_inbag += torch.bincount(
+                    gl.t().reshape(-1),
+                    weights=inbag_d[:, i0:i0 + step].reshape(-1).double(),
+                    minlength=L)
+        leaf_mass = mass.to(torch.float64)
+        if inbag_d is not None:
+            leaf_mass_inbag = mass_inbag
             oob = inbag_d == 0
             oob_count = oob.sum(0).to(torch.int64)
         else:
-            inbag_d = oob = oob_count = None
+            oob = oob_count = None
             leaf_mass_inbag = leaf_mass.clone()
         tw = forest.tree_weights_
         tw = torch.ones(T, dtype=torch.float64, device=dev) if tw is None \

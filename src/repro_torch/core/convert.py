@@ -39,8 +39,9 @@ def forest_kernel_from_arrays(arrays, config: dict, device="cuda",
 
     ``config`` is the reference kernel's constructor config (a snapshot
     manifest's ``"config"``); keys the port has no counterpart for (engine,
-    routing and trainer backends, out-of-core settings, dtype) are ignored,
-    because the port has one path for each: in particular the reference's
+    routing and trainer backends, dtype) are ignored, because the port has
+    one path for each (its out-of-core settings are kept and the engine
+    is built under them): in particular the reference's
     ``tree_backend`` ('native', 'jax', ...) is dropped, and the port's
     resolves from ``device``.  ``base_score`` is the manifest's
     ``"base_score"`` (a gradient-boosted kernel's initial score).
@@ -73,6 +74,9 @@ def forest_kernel_from_arrays(arrays, config: dict, device="cuda",
     fk.ctx = EnsembleContext.from_forest(
         forest, leaves=np.ascontiguousarray(arrays["leaves"], dtype=np.int32))
     fk.assignment = get_assignment(fk.kernel_method, fk.ctx)
-    fk.engine = ProximityEngine(fk.ctx, fk.assignment, forest=forest)
+    fk.engine = ProximityEngine(
+        fk.ctx, fk.assignment, forest=forest,
+        memory_budget_bytes=fk.memory_budget_bytes,
+        factor_scratch_dir=fk.scratch_dir)
     fk.Q_, fk.W_ = fk.engine.Q, fk.engine.W
     return fk

@@ -22,9 +22,19 @@ On a CPU engine the same calls take the kernels' plain versions, and large
 train-side top-k and squared row sums take the host CSR factors instead.
 Results are tensors on the engine's device.
 
+Out of core, ``memory_budget_bytes`` bounds the transients: the CSR maps
+are built from row chunks of the device factors (``streamed_leaf_map``,
+indices and data spilled to scratch memmaps under ``factor_scratch_dir``
+when they alone exceed the budget), a block kernel call's rows shrink so a
+block and its squared copy fit half the budget, the bucket table of a wide
+product is built a few columns at a time, and the host CSR row blocks
+shrink.  None of it changes a result: the CSR maps, blocks, top-k and
+squared row sums keep their bits; products keep theirs on the CPU (on the
+card their ``index_add_`` atomics vary in the last bits either way).
+
 ``PrefixProximityEngine`` is the depth-prefix tier: the engine of the
 depth-truncated forest, contracted from a fitted parent engine without
-routing again.  Not in this slice: the memory budget (out-of-core slice).
+routing again; like the compressed view, it keeps its parent's budget.
 """
 from __future__ import annotations
 
@@ -45,7 +55,7 @@ from ..obs.metrics import global_registry
 from . import torch_ops
 from .context import EnsembleContext
 from .factorization import (full_kernel, prefix_leaf_contraction,
-                            topk_neighbors)
+                            streamed_leaf_map, topk_neighbors)
 from .leafmap import build_leaf_map, sparse_bytes
 from .weights import get_assignment
 
@@ -62,6 +72,23 @@ _BLOCK_BYTES = 1 << 28
 _REF_CACHE_COLS = 32
 _REF_CACHE_SIZE = 16
 _REF_CACHE_BYTES = 1 << 27
+# A block's squared row sums are reduced this many rows at a time, at rows
+# aligned to multiples of it, so each row's sum has the same shape (and
+# bits) however many rows its block kernel call held; block heights are
+# multiples of it.
+_SUM_ROWS = 32
+
+
+class _HostRows:
+    """Row slices of a device tensor as host arrays in ``dtype``: what the
+    streamed CSR build reads, so the whole (N, T) matrix is never copied to
+    the host at once."""
+
+    def __init__(self, t: torch.Tensor, dtype):
+        self.t, self.dtype, self.shape = t, dtype, tuple(t.shape)
+
+    def __getitem__(self, rows) -> np.ndarray:
+        return self.t[rows].cpu().numpy().astype(self.dtype, copy=False)
 
 
 class QueryState:
@@ -104,12 +131,16 @@ class ProximityEngine:
     _SPARSE_TRAIN_CUTOVER = 8192
 
     def __init__(self, ctx, assignment, forest=None, oos_cache_size: int = 8,
-                 factors=None):
+                 factors=None, memory_budget_bytes: Optional[int] = None,
+                 factor_scratch_dir: Optional[str] = None):
         self.ctx = ctx
         self.assignment = assignment
         self.forest = forest
         self.device = ctx.device
         self.total_leaves = int(ctx.total_leaves)
+        self.memory_budget_bytes = None if memory_budget_bytes is None \
+            else int(memory_budget_bytes)
+        self._factor_scratch_dir = factor_scratch_dir
         self.gl = ctx.global_leaves()                        # (N, T) int32
         # ``factors=(q, w)`` injects precomputed weights (w may be None for
         # a symmetric rule) instead of running the assignment again
@@ -123,14 +154,39 @@ class ProximityEngine:
             self.w = self.q if assignment.symmetric else \
                 assignment.reference_weights(ctx.leaves).contiguous()
 
-        # host CSR factors: int64 leaf ids and float64 weights copied back
-        gl_host = self.gl.cpu().numpy().astype(np.int64)
-        self.Q = build_leaf_map(gl_host, self.q.cpu().numpy(),
-                                self.total_leaves)
-        self.W = self.Q if self.w is self.q else build_leaf_map(
-            gl_host, self.w.cpu().numpy(), self.total_leaves)
+        # host CSR factors: int64 leaf ids and float64 weights copied back,
+        # whole or, under a budget, in row chunks
+        gl_host = _HostRows(self.gl, np.int64)
+        if self.memory_budget_bytes is None:
+            gl_host = gl_host[:]
+        self.Q = self._build_factor(gl_host, self.q)
+        self.W = self.Q if self.w is self.q else \
+            self._build_factor(gl_host, self.w)
         self.leaf_values = None if forest is None else forest.leaf_values_
         self._init_runtime_state(oos_cache_size=oos_cache_size)
+
+    def _factor_row_chunk(self) -> Optional[int]:
+        """Rows the streamed CSR build reads at a time under a budget
+        (about 32 bytes of transient a (row, tree) cell); None without
+        one."""
+        if self.memory_budget_bytes is None:
+            return None
+        return max(1024, self.memory_budget_bytes //
+                   max(32 * self.gl.shape[1], 1))
+
+    def _build_factor(self, gl_host, weights: torch.Tensor) -> sp.csr_matrix:
+        """One CSR leaf map.  Under a budget the streamed build reads
+        ``_factor_row_chunk`` rows at a time and spills indices and data to
+        scratch memmaps when they alone exceed the budget; the result is
+        the same CSR."""
+        if self.memory_budget_bytes is None:
+            return build_leaf_map(gl_host, weights.cpu().numpy(),
+                                  self.total_leaves)
+        return streamed_leaf_map(
+            gl_host, _HostRows(weights, np.float64), self.total_leaves,
+            row_chunk=self._factor_row_chunk(),
+            memmap_threshold_bytes=self.memory_budget_bytes,
+            scratch_dir=self._factor_scratch_dir)
 
     def _init_runtime_state(self, oos_cache=None, oos_cache_size: int = 8,
                             oos_lock: Optional[threading.Lock] = None) -> None:
@@ -254,9 +310,32 @@ class ProximityEngine:
 
     def _product(self, qs: QueryState, V: torch.Tensor, key=None,
                  keepalive=None) -> torch.Tensor:
+        cb = self._col_chunk(V.shape[1])
+        if cb < V.shape[1]:
+            # bound the (total_leaves, C) bucket table under the budget:
+            # the columns of P V are independent, so V goes a few at a
+            # time (uncached tables)
+            out = torch.empty((qs.n, V.shape[1]), dtype=torch.float64,
+                              device=self.device)
+            for j0 in range(0, V.shape[1], cb):
+                Vj = V[:, j0:j0 + cb].contiguous()
+                out[:, j0:j0 + cb] = torch_ops.swlc_gather(
+                    qs.gl, qs.q, self._ref_table(Vj),
+                    self._t_chunk(Vj.shape[1]))
+            return out
         return torch_ops.swlc_gather(qs.gl, qs.q,
                                      self._ref_table(V, key, keepalive),
                                      self._t_chunk(V.shape[1]))
+
+    def _col_chunk(self, n_cols: int) -> int:
+        """Columns of V a product's bucket table holds at once: the dense
+        (total_leaves, C) table dwarfs every other working set out of core
+        (millions of leaves), so under a budget it is kept within half of
+        it."""
+        if self.memory_budget_bytes is None or n_cols <= 1:
+            return n_cols
+        per_col = 8 * max(self.total_leaves, 1)
+        return max(1, min(n_cols, self.memory_budget_bytes // (2 * per_col)))
 
     def _t_chunk(self, C: int) -> Optional[int]:
         return torch_ops.auto_t_chunk(self.n_ref, self.gl.shape[1], C)
@@ -363,10 +442,32 @@ class ProximityEngine:
             gl_q, q = gl_q[r], q[r]
         return self._block(gl_q, q, cols)
 
+    def _op_row_chunk(self, block: int) -> int:
+        """Rows of one block kernel call in the ops that reduce its output
+        (top-k, squared row sums): at most ``block`` and ``_BLOCK_BYTES`` of
+        output, and under a budget at most half of it (the block and its
+        squared copy), in whole multiples of ``_SUM_ROWS`` (at least one)."""
+        cap = _BLOCK_BYTES if self.memory_budget_bytes is None \
+            else min(_BLOCK_BYTES, self.memory_budget_bytes // 2)
+        rows = min(block, cap // (8 * max(self.n_ref, 1)))
+        return max(_SUM_ROWS, rows - rows % _SUM_ROWS)
+
+    def _budget_block(self, block: int) -> int:
+        """Row block of the host CSR products under a budget: a product
+        block holds ~16 bytes a nonzero, and a row's nonzeros scale with T
+        times the mean reference rows a leaf, so a quarter of the budget
+        covers the block."""
+        if self.memory_budget_bytes is None:
+            return block
+        T = self.gl.shape[1]
+        per_row = 16 * T * max(1, int(self.W.nnz) // max(self.total_leaves,
+                                                         1))
+        return max(256, min(block, self.memory_budget_bytes // (4 * per_row)))
+
     def _dense_blocks(self, qs: QueryState, block: int):
-        """Row chunks of P[qs, :] as (i0, i1, block): at most ``block`` rows
-        and ``_BLOCK_BYTES`` of output each."""
-        step = max(1, min(block, _BLOCK_BYTES // (8 * max(self.n_ref, 1))))
+        """Row chunks of P[qs, :] as (i0, i1, block), ``_op_row_chunk``
+        rows each."""
+        step = self._op_row_chunk(block)
         for i0 in range(0, qs.n, step):
             i1 = min(i0 + step, qs.n)
             yield i0, i1, self._block(qs.gl[i0:i1], qs.q[i0:i1])
@@ -391,7 +492,7 @@ class ProximityEngine:
                 n_classes = int(class_ids.max()) + 1
         if self._sparse_train(X):
             return self._tensor(self._squared_row_sums_csr(
-                qs.Q, class_ids, n_classes, block))
+                qs.Q, class_ids, n_classes, self._budget_block(block)))
         onehot = None
         if class_ids is not None:
             onehot = torch.zeros((self.n_ref, n_classes), dtype=torch.float64,
@@ -402,7 +503,11 @@ class ProximityEngine:
         out = torch.zeros(shape, dtype=torch.float64, device=self.device)
         for i0, i1, B in self._dense_blocks(qs, block):
             B2 = B * B
-            out[i0:i1] = B2.sum(dim=1) if onehot is None else B2 @ onehot
+            # _SUM_ROWS rows a reduction, at rows aligned to its multiples
+            for r0 in range(0, i1 - i0, _SUM_ROWS):
+                part = B2[r0:r0 + _SUM_ROWS]
+                out[i0 + r0:i0 + r0 + part.shape[0]] = \
+                    part.sum(dim=1) if onehot is None else part @ onehot
         return out
 
     def _squared_row_sums_csr(self, Q, class_ids, n_classes,
@@ -485,7 +590,8 @@ class ProximityEngine:
         int64, values float64)."""
         qs = self.query_state(X)
         if self._sparse_train(X):
-            idx, val = topk_neighbors(qs.Q, self.W, k, block=block)
+            idx, val = topk_neighbors(qs.Q, self.W, k,
+                                      block=self._budget_block(block))
             return self._tensor(idx, torch.int64), self._tensor(val)
         kk = min(k, self.n_ref)
         idx = torch.zeros((qs.n, k), dtype=torch.int64, device=self.device)
@@ -496,7 +602,7 @@ class ProximityEngine:
                 _topk_rows(B, kk)
         if bool(spill.any()):          # one host read for the whole call
             rows = spill.nonzero()[:, 0]
-            step = max(1, min(block, _BLOCK_BYTES // (8 * self.n_ref)))
+            step = self._op_row_chunk(block)
             for r0 in range(0, rows.numel(), step):
                 r = rows[r0:r0 + step]
                 idx[r, :kk], val[r, :kk] = _topk_rows_exact(
@@ -509,7 +615,10 @@ class ProximityEngine:
         built, the block kernel's leaf index on the device; CSR maps and
         leaf values on the host).  The dense factors, Q, W and the total
         are also pushed to the process-wide metrics registry (the
-        ``engine_memory_bytes{component}`` gauge family)."""
+        ``engine_memory_bytes{component}`` gauge family).  Under a
+        ``memory_budget_bytes`` the report also carries the budget and
+        whether the total fits it, and the budget goes to the
+        ``engine_memory_budget_bytes`` gauge."""
         def nbytes(t):
             return t.numel() * t.element_size()
         dense = nbytes(self.gl) + nbytes(self.q) + \
@@ -521,11 +630,18 @@ class ProximityEngine:
         index = self._leaf_index
         out["leaf_index"] = 0 if index is None else index.nbytes
         out["total"] = sum(out.values())
+        if self.memory_budget_bytes is not None:
+            out["budget"] = int(self.memory_budget_bytes)
+            out["within_budget"] = bool(out["total"] <= out["budget"])
         g = global_registry().gauge("engine_memory_bytes",
                                     "resident engine factor bytes",
                                     labels=("component",))
         for comp in ("dense_factors", "Q", "W", "total"):
             g.labels(component=comp).set(float(out[comp]))
+        if self.memory_budget_bytes is not None:
+            global_registry().gauge(
+                "engine_memory_budget_bytes",
+                "configured engine memory budget").set(float(out["budget"]))
         return out
 
 
@@ -617,7 +733,9 @@ class PrefixProximityEngine(ProximityEngine):
             trunc, X=pctx.X, y=pctx.y,
             leaves=self._contract(pctx.global_leaves())[1])
         super().__init__(ctx_k, get_assignment(parent.assignment.name, ctx_k),
-                         forest=trunc)
+                         forest=trunc,
+                         memory_budget_bytes=parent.memory_budget_bytes,
+                         factor_scratch_dir=parent._factor_scratch_dir)
 
     def _contract(self, gl_full: torch.Tensor):
         """(global, within-tree) int32 prefix leaves of the parent's global

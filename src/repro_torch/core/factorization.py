@@ -7,10 +7,14 @@ leaf-colliding pairs: O(N T λ̄) (paper §3.3).  The engine uses these for
 the full kernel, the operator's transpose, and train-side all-pairs jobs
 (top-k, squared row sums) above its sparse cutover; they are also the
 host reference ``chip_smoke.py`` holds the device ops against.
+``streamed_leaf_map`` is the out-of-core CSR build: row chunks in, and
+indices and data spilled to unlinked scratch memmaps past a threshold.
 """
 from __future__ import annotations
 
 import hashlib
+import os
+import tempfile
 from typing import Optional, Tuple
 
 import numpy as np
@@ -22,7 +26,95 @@ from ..forest.trees import prefix_leaf_map
 
 __all__ = ["factor_digest", "full_kernel", "kernel_block",
            "kernel_matvec_operator", "topk_neighbors",
-           "prefix_leaf_contraction", "naive_swlc"]
+           "prefix_leaf_contraction", "naive_swlc", "streamed_leaf_map"]
+
+
+def _scratch_array(shape, dtype, scratch_dir: Optional[str]) -> np.ndarray:
+    """Anonymous disk-backed array: the scratch file is unlinked as soon as
+    the mapping is live, so the space is reclaimed when the array dies and
+    nothing leaks even if the process is killed mid-build (Linux)."""
+    os.makedirs(scratch_dir or tempfile.gettempdir(), exist_ok=True)
+    fd, path = tempfile.mkstemp(prefix="leafmap_", suffix=".mm",
+                                dir=scratch_dir)
+    os.close(fd)
+    try:
+        return np.memmap(path, dtype=dtype, mode="w+", shape=shape)
+    finally:
+        os.unlink(path)
+
+
+def streamed_leaf_map(global_leaves, weights, total_leaves: int,
+                      dtype=np.float64, row_chunk: int = 65536,
+                      memmap_threshold_bytes: Optional[int] = None,
+                      scratch_dir: Optional[str] = None) -> sp.csr_matrix:
+    """Out-of-core :func:`~repro_torch.core.leafmap.build_leaf_map` (copy
+    of the reference's).
+
+    Builds the same CSR (N, L) leaf map from row chunks of
+    ``global_leaves``/``weights`` (anything whose row slices convert to
+    arrays: an ``np.memmap``, or the engine's view of device factors)
+    without materializing the (N, T) mask or the whole nonzero scatter at
+    once.  Two passes: chunked nonzero counts fix ``indptr``/nnz exactly,
+    then each chunk's entries are sorted per row by column (global leaf
+    ranges are disjoint per tree, so the order is unambiguous) and written
+    into the preallocated ``indices``/``data``.
+
+    Bit-identical to the in-memory build: scipy's constructor picks the
+    index dtype (int32 when everything fits, int64 otherwise), which is
+    replicated by probing an empty matrix of the same shape.  When
+    ``memmap_threshold_bytes`` is set and indices + data would exceed it,
+    they are backed by unlinked scratch memmaps under ``scratch_dir``.
+    """
+    n, T = global_leaves.shape
+    indptr64 = np.zeros(n + 1, dtype=np.int64)
+    for i0 in range(0, n, row_chunk):
+        i1 = min(i0 + row_chunk, n)
+        w_c = np.ascontiguousarray(np.asarray(weights[i0:i1]), dtype=dtype)
+        indptr64[i0 + 1:i1 + 1] = (w_c != 0).sum(1)
+    np.cumsum(indptr64, out=indptr64)
+    nnz = int(indptr64[-1])
+
+    # scipy's csr_matrix((data, indices, indptr), shape) downcasts the index
+    # arrays via get_index_dtype; probe its choice on this shape and only
+    # override when the nnz itself demands 64-bit
+    probe = sp.csr_matrix((np.zeros(0, dtype=dtype),
+                           np.zeros(0, dtype=np.int64),
+                           np.zeros(n + 1, dtype=np.int64)),
+                          shape=(n, total_leaves))
+    idx_dtype = np.dtype(np.int64 if nnz > np.iinfo(np.int32).max
+                         else probe.indices.dtype)
+
+    total_bytes = nnz * (idx_dtype.itemsize + np.dtype(dtype).itemsize)
+    if memmap_threshold_bytes is not None and \
+            total_bytes > memmap_threshold_bytes:
+        indices = _scratch_array((nnz,), idx_dtype, scratch_dir)
+        data = _scratch_array((nnz,), np.dtype(dtype), scratch_dir)
+    else:
+        indices = np.empty(nnz, dtype=idx_dtype)
+        data = np.empty(nnz, dtype=dtype)
+
+    for i0 in range(0, n, row_chunk):
+        i1 = min(i0 + row_chunk, n)
+        gl_c = np.asarray(global_leaves[i0:i1])
+        w_c = np.ascontiguousarray(np.asarray(weights[i0:i1]), dtype=dtype)
+        nz = w_c != 0
+        cnt = nz.sum(1)
+        if not cnt.any():
+            continue
+        rr = np.repeat(np.arange(i1 - i0), cnt)
+        ii = gl_c[nz]
+        dd = w_c[nz]
+        # per-row column sort == csr.sort_indices() on this slice
+        order = np.lexsort((ii, rr))
+        lo, hi = int(indptr64[i0]), int(indptr64[i1])
+        indices[lo:hi] = ii[order]
+        data[lo:hi] = dd[order]
+
+    m = sp.csr_matrix((n, total_leaves), dtype=dtype)
+    m.data, m.indices = data, indices
+    m.indptr = indptr64.astype(idx_dtype, copy=False)
+    m.has_sorted_indices = True
+    return m
 
 
 def factor_digest(gl, q, w=None) -> str:

@@ -19,8 +19,9 @@ two structural digests:
 Both digests hash host copies in the reference's dtypes, so they are the
 reference's strings for the same forest.  The config is written under the
 reference's field names, with the values the reference reads as its own
-defaults (``dtype`` float64, the scipy engine, ``auto`` routing and trainer,
-no out-of-core settings) and no ``device``, so the reference's
+defaults (``dtype`` float64, the scipy engine, ``auto`` routing and
+trainer), the kernel's own out-of-core settings (``scratch_dir``,
+``memory_budget_bytes``) and no ``device``, so the reference's
 ``ForestKernel.load`` accepts a port archive.
 
 ``load_kernel`` verifies every checksum, rebuilds forest → context → engine
@@ -33,7 +34,8 @@ therefore computes the saved kernel's bits: same leaves, same factors, same
 kernels.  The reference's engine and routing backends are ignored (they
 agree to 1e-8 and the port has one of each), its trainer backend maps to
 ``"auto"``, and an archive's out-of-core settings (``scratch_dir``,
-``memory_budget_bytes``) load in memory with the same answers.  An archive
+``memory_budget_bytes``) are honoured: the loaded kernel keeps them and
+builds its engine under them, with the same answers.  An archive
 whose ``dtype`` is not float64 is refused: float32 factors are not ported.
 
 Failure modes all raise :class:`SnapshotError` with a reason: unknown
@@ -99,12 +101,12 @@ def _checksum(a: np.ndarray) -> str:
 def _reference_config(fk) -> dict:
     """The kernel's config as the reference's ``ForestKernel(**config)``
     takes it: the shared fields, then the reference's own settings at the
-    values that match the port (float64, in memory)."""
+    values that match the port (float64), and the out-of-core settings."""
     config = {k: getattr(fk, k) for k in _SHARED_CONFIG}
     config.update(dtype="float64", engine_backend="scipy",
                   routing_backend="auto", tree_backend="auto",
-                  n_jobs=fk.n_jobs, scratch_dir=None,
-                  memory_budget_bytes=None)
+                  n_jobs=fk.n_jobs, scratch_dir=fk.scratch_dir,
+                  memory_budget_bytes=fk.memory_budget_bytes)
     return config
 
 
@@ -228,7 +230,9 @@ def load_kernel(path, device="cuda"):
             "only (float32 factors are not ported)")
     fk = ForestKernel(**{k: config[k] for k in _SHARED_CONFIG
                          if k in config},
-                      n_jobs=config.get("n_jobs", 0), device=device)
+                      n_jobs=config.get("n_jobs", 0), device=device,
+                      scratch_dir=config.get("scratch_dir"),
+                      memory_budget_bytes=config.get("memory_budget_bytes"))
 
     forest = fk._forest()
     forest.trees_ = unpack_trees({k: arrays[f"tree_{k}"]
@@ -270,7 +274,9 @@ def load_kernel(path, device="cuda"):
                 arrays["factor_w_data"], arrays["factor_w_indices"],
                 arrays["factor_w_indptr"], ctx.leaf_offset, T)
     fk.engine = ProximityEngine(ctx, fk.assignment, forest=forest,
-                                factors=(q, w))
+                                factors=(q, w),
+                                memory_budget_bytes=fk.memory_budget_bytes,
+                                factor_scratch_dir=fk.scratch_dir)
     if factor_digest(fk.engine.gl, fk.engine.q,
                      fk.engine.w) != manifest["factor_digest"]:
         raise SnapshotError(f"{path}: rebuilt factor digest mismatch")

@@ -11,7 +11,9 @@ Both are O(N·T·C) and run in float64.  The reference computes this in plain
 jax (no Pallas kernel), so plain torch ops are its counterpart here.  On the
 card ``index_add_`` accumulates with atomics, so the last bits of a bucket
 vary from run to run; results hold to the engine's 1e-8 contract, not
-bitwise.
+bitwise.  On the CPU both halves sum in a fixed order that does not depend
+on how many columns V has, so a product computed a few columns at a time
+(an engine under a memory budget) has the bits of the whole one.
 """
 from __future__ import annotations
 
@@ -62,10 +64,16 @@ def swlc_bucket(gl_w: torch.Tensor, w: torch.Tensor, V: torch.Tensor,
 def swlc_gather(gl_q: torch.Tensor, q: torch.Tensor, S: torch.Tensor,
                 t_chunk: Optional[int]) -> torch.Tensor:
     """The query half: ``(P V)[i] = Σ_t q[i,t] · S[gl_q[i,t]]``, summed over
-    tree chunks of ``t_chunk``."""
+    tree chunks of ``t_chunk`` on the card; on the CPU tree by tree in tree
+    order (a reduction over trees would take another order for one column
+    than for several)."""
     nq, T = gl_q.shape
-    step = _step(T, t_chunk)
     out = torch.zeros((nq, S.shape[1]), dtype=torch.float64, device=S.device)
+    if S.device.type == "cpu":
+        for t in range(T):
+            out += q[:, t, None] * S[gl_q[:, t]]
+        return out
+    step = _step(T, t_chunk)
     for t0 in range(0, T, step):
         qq = q[:, t0:t0 + step]
         out += (qq[:, :, None] * S[gl_q[:, t0:t0 + step]]).sum(dim=1)

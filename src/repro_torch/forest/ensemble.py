@@ -7,12 +7,17 @@ assignments consume.  Trees grow on the forest's ``device``
 through the histogram kernels, on the CPU with the host numpy trainer (both
 bit-identical to the reference's numpy trainer on integer payloads).
 Routing and leaf-table gathers run on the device through the routing
-kernel.
+kernel.  With ``xb_scratch`` the binned codes stream into a disk-backed
+memmap under that directory (out of core): the card trainer then stages
+each histogram call's rows instead of copying the code matrix up, and the
+file is removed when the fit ends, whether it succeeds or raises.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
@@ -23,8 +28,8 @@ from ..device import resolve_device
 from ..kernels.leaf_route.ops import RouteTables, route, route_tables
 from .bootstrap import bootstrap_counts, oob_mask
 from .trees import Tree, TreeArrays, stack_leaf_values, truncate_tree
-from .training import (Binner, TreeParams, _grow_trees, device_codes,
-                       fit_forest_binned, fit_tree_binned,
+from .training import (Binner, TreeParams, _grow_trees, _is_streamed,
+                       device_codes, fit_forest_binned, fit_tree_binned,
                        resolve_tree_backend)
 
 __all__ = ["RandomForest", "ExtraTrees", "GradientBoostedTrees",
@@ -70,6 +75,10 @@ class BaseForest:
     device: str = "cuda"             # where trees grow, route and gather
     tree_backend: str = "auto"       # trainer: 'auto' | 'numpy' | 'torch'
     tree_block: int = 0              # torch batch width (0 auto, <0 all)
+    xb_scratch: Optional[str] = None  # out-of-core fit: directory for the
+    #                                   disk-backed binned-code file (streamed
+    #                                   in, trained from, removed on success
+    #                                   and on failure)
 
     # fitted state
     trees_: Optional[List[Tree]] = None
@@ -92,6 +101,25 @@ class BaseForest:
             max_features=self.max_features, n_bins=self.n_bins,
             splitter=self.splitter, tree_backend=self.tree_backend)
 
+    @contextlib.contextmanager
+    def _binned_codes(self, X: np.ndarray):
+        """The fit's binned codes: in memory by default, or, when
+        ``xb_scratch`` names a directory, streamed chunk by chunk into a
+        uniquely named memmap there (concurrent fits never collide).  The
+        file is unlinked when the block exits, success or failure; the live
+        mapping stays valid until its last reference drops."""
+        if self.xb_scratch is None:
+            yield self.binner_.transform(X)
+            return
+        os.makedirs(self.xb_scratch, exist_ok=True)
+        fd, path = tempfile.mkstemp(prefix="xb_", suffix=".mm",
+                                    dir=self.xb_scratch)
+        os.close(fd)
+        try:
+            yield self.binner_.transform_memmap(X, path)
+        finally:
+            os.unlink(path)
+
     def fit(self, X: np.ndarray, y: np.ndarray) -> "BaseForest":
         dev = resolve_device(self.device)    # fail before training, not after
         rng = np.random.default_rng(self.seed)
@@ -109,29 +137,30 @@ class BaseForest:
         # Independent per-tree RNG streams (SeedSequence spawn) keep results
         # deterministic under any worker-pool schedule.
         child_rngs = rng.spawn(self.n_trees)
-        Xb = self.binner_.transform(X)
 
-        if resolve_tree_backend(self.tree_backend, dev) == "torch":
-            # one level-synchronous batch: each level's histograms for every
-            # tree's frontier in one kernel launch per node chunk, with no
-            # thread pool on top
-            self.trees_ = fit_forest_binned(
-                Xb, y, self.inbag_, params, child_rngs, self.binner_,
-                backend="torch", tree_block=self.tree_block, device=dev)
-        else:
-            def fit_one(t: int) -> Tree:
-                w = self.inbag_[t]
-                sel = np.nonzero(w)[0]
-                return fit_tree_binned(Xb[sel], y[sel],
-                                       w[sel].astype(np.float64), params,
-                                       child_rngs[t], self.binner_, dev)
-
-            jobs = _resolve_jobs(self.n_jobs, self.n_trees)
-            if jobs == 1:
-                self.trees_ = [fit_one(t) for t in range(self.n_trees)]
+        with self._binned_codes(X) as Xb:
+            if resolve_tree_backend(self.tree_backend, dev) == "torch":
+                # one level-synchronous batch: each level's histograms for
+                # every tree's frontier in one kernel launch per node chunk,
+                # with no thread pool on top
+                self.trees_ = fit_forest_binned(
+                    Xb, y, self.inbag_, params, child_rngs, self.binner_,
+                    backend="torch", tree_block=self.tree_block, device=dev)
             else:
-                with ThreadPoolExecutor(max_workers=jobs) as ex:
-                    self.trees_ = list(ex.map(fit_one, range(self.n_trees)))
+                def fit_one(t: int) -> Tree:
+                    w = self.inbag_[t]
+                    sel = np.nonzero(w)[0]
+                    return fit_tree_binned(Xb[sel], y[sel],
+                                           w[sel].astype(np.float64), params,
+                                           child_rngs[t], self.binner_, dev)
+
+                jobs = _resolve_jobs(self.n_jobs, self.n_trees)
+                if jobs == 1:
+                    self.trees_ = [fit_one(t) for t in range(self.n_trees)]
+                else:
+                    with ThreadPoolExecutor(max_workers=jobs) as ex:
+                        self.trees_ = list(ex.map(fit_one,
+                                                  range(self.n_trees)))
         self.tree_weights_ = np.ones(self.n_trees, dtype=np.float64)
         self._cache_tables()
         return self
@@ -252,9 +281,6 @@ class GradientBoostedTrees(BaseForest):
         params.task = "regression"   # boosting fits residuals
         params.n_classes = 0
         backend = resolve_tree_backend(self.tree_backend, dev)
-        Xb = self.binner_.transform(X)
-        codes = device_codes(Xb, self.binner_, dev) \
-            if backend == "torch" else None
         X_dev = torch.as_tensor(X, device=dev)
         F = np.full(len(X), self.base_score_)
         self.trees_ = []
@@ -266,20 +292,26 @@ class GradientBoostedTrees(BaseForest):
             return float(np.mean((yf - F) ** 2))
 
         prev = loss(F)
-        for t in range(self.n_trees):
-            resid = (yf - 1.0 / (1.0 + np.exp(-F))) if binary else (yf - F)
-            w = self.inbag_[t]
-            sel = np.nonzero(w)[0].astype(np.int64)
-            task = (sel, w[sel].astype(np.float64), rng)
-            tr = _grow_trees(Xb, resid, [task], params, self.binner_,
-                             backend, dev, codes)[0]
-            self.trees_.append(tr)
-            leaves = route(X_dev, route_tables(TreeArrays.from_trees([tr]),
-                                               dev))[:, 0].cpu().numpy()
-            F = F + self.learning_rate * tr.leaf_values()[leaves, 1]
-            cur = loss(F)
-            tw.append(max(prev - cur, 0.0))
-            prev = cur
+        with self._binned_codes(X) as Xb:
+            # in-memory codes go to the device once a fit; streamed codes
+            # are staged by every stage's histogram calls
+            codes = device_codes(Xb, self.binner_, dev) \
+                if backend == "torch" and not _is_streamed(Xb) else None
+            for t in range(self.n_trees):
+                resid = (yf - 1.0 / (1.0 + np.exp(-F))) if binary \
+                    else (yf - F)
+                w = self.inbag_[t]
+                sel = np.nonzero(w)[0].astype(np.int64)
+                task = (sel, w[sel].astype(np.float64), rng)
+                tr = _grow_trees(Xb, resid, [task], params, self.binner_,
+                                 backend, dev, codes)[0]
+                self.trees_.append(tr)
+                leaves = route(X_dev, route_tables(
+                    TreeArrays.from_trees([tr]), dev))[:, 0].cpu().numpy()
+                F = F + self.learning_rate * tr.leaf_values()[leaves, 1]
+                cur = loss(F)
+                tw.append(max(prev - cur, 0.0))
+                prev = cur
         tw = np.asarray(tw)
         self.tree_weights_ = tw / max(tw.sum(), 1e-12)
         self._cache_tables()

@@ -24,6 +24,15 @@ Two backends, chosen by ``TreeParams.tree_backend`` (``resolve_tree_backend``):
              come back.  On a CPU device the kernels' plain versions run;
   ``auto``   ``torch`` on a CUDA device, ``numpy`` otherwise.
 
+Out of core: ``Binner.transform_memmap`` streams the codes into a
+disk-backed ``np.memmap`` chunk by chunk, and both backends train from it
+without holding the whole code matrix in memory.  The numpy backend reads
+each feature tile's rows from the memmap; the torch backend never copies
+the memmap to the device as a whole: each histogram call gathers its
+frontier rows' codes on the host, in node order, into a fresh pinned
+buffer and stages only those to the device.  Trees are bit-identical to
+the in-memory codes' on either backend.
+
 Every RNG draw, the partition, early-leaf pruning and the split decisions
 stay on the host, per tree in the same chunked order as the reference, and
 split scores use the same float64 operation order with first-maximum
@@ -32,10 +41,10 @@ numpy (and native) backend on integer payloads (bootstrap counts, class
 labels, integer targets), which float32 histograms hold exactly; on
 continuous payloads (gradient-boosting residuals) the float32 device
 histograms agree within the reference's ``jax`` backend bounds.  The
-reference's native C branch and its out-of-core (memmap) path are not part
-of this copy.  Each level is timed into the process-wide metrics registry
-(``train_level_seconds{backend}``, ``train_levels_total{backend}``,
-``train_frontier_nodes``, ``train_frontier_rows``) from host values alone.
+reference's native C branch is not part of this copy.  Each level is timed
+into the process-wide metrics registry (``train_level_seconds{backend}``,
+``train_levels_total{backend}``, ``train_frontier_nodes``,
+``train_frontier_rows``) from host values alone.
 """
 from __future__ import annotations
 
@@ -165,15 +174,27 @@ class Binner:
         """Dtype of the emitted bin codes (uint8 iff they fit a byte)."""
         return np.dtype(np.uint8 if self.n_bins <= 256 else np.int16)
 
-    def transform(self, X: np.ndarray) -> np.ndarray:
+    def transform(self, X: np.ndarray, out: Optional[np.ndarray] = None
+                  ) -> np.ndarray:
         """Map raw features to bin codes; bin(x) <= b  <=>  x <= edges[b].
 
         Exact ``searchsorted(edges_f, x, side='left')`` semantics including
-        NaN (which bins past the last edge).
+        NaN (which bins past the last edge), one broadcast comparison pass
+        per row chunk.  ``out`` streams the codes into a preallocated (n, d)
+        array of :attr:`code_dtype` (typically an ``np.memmap``), so only one
+        (chunk, d, E) comparison transient is resident; ``X`` may be
+        disk-backed too and is read in the same chunks.  The sweep is the
+        same with or without ``out``, so streamed codes equal the in-memory
+        ones bit for bit.
         """
         n, d = X.shape
         dt = self.code_dtype
-        out = np.empty((n, d), dtype=dt)
+        if out is None:
+            out = np.empty((n, d), dtype=dt)
+        elif out.shape != (n, d) or out.dtype != dt:
+            raise ValueError(
+                f"out must be shape {(n, d)} dtype {dt}, got "
+                f"{out.shape} {out.dtype}")
         pe = self._pad_edges
         cnt = self.edge_count[None, :]
         chunk = max(1, int(_TILE_ELEMS * 4) // max(pe.shape[1] * d, 1))
@@ -182,6 +203,17 @@ class Binner:
             ge = pe[None, :, :] >= x[:, :, None]     # (c, d, E)
             out[i0:i0 + chunk] = (cnt - ge.sum(axis=2)).astype(dt)
         return out
+
+    def transform_memmap(self, X: np.ndarray, path) -> np.memmap:
+        """Stream-bin ``X`` into a disk-backed code matrix at ``path``: an
+        ``np.memmap`` (mode ``w+``) of shape (n, d) and :attr:`code_dtype`,
+        filled chunk by chunk through :meth:`transform`, flushed, and
+        returned live.  Both trainer backends take it as it is."""
+        n, d = X.shape
+        mm = np.memmap(path, dtype=self.code_dtype, mode="w+", shape=(n, d))
+        self.transform(X, out=mm)
+        mm.flush()
+        return mm
 
     def thresholds(self, f: np.ndarray, b: np.ndarray) -> np.ndarray:
         """Raw-unit split thresholds of (feature, bin) arrays."""
@@ -193,6 +225,29 @@ class Binner:
         idx = self.edge_offset[f] + np.minimum(b, np.maximum(c - 1, 0))
         out = self.edges_flat[np.minimum(idx, len(self.edges_flat) - 1)]
         return np.where(c > 0, out, np.inf)
+
+
+def _as_code_matrix(Xb) -> np.ndarray:
+    """A binned-code matrix as an array, keeping an ``np.memmap`` one:
+    ``np.asarray`` would return a plain view and the trainer could no
+    longer tell that the codes are disk-backed (:func:`_is_streamed`)."""
+    return Xb if isinstance(Xb, np.ndarray) else np.asarray(Xb)
+
+
+def _is_streamed(Xb: np.ndarray) -> bool:
+    """True when the code matrix is disk-backed: the trainer then reads it
+    in bounded row gathers and never copies it whole."""
+    return isinstance(Xb, np.memmap)
+
+
+def _check_codes(Xb: np.ndarray, n_bins: int) -> None:
+    """Raise unless every code lies in ``[0, n_bins)``: the histogram
+    kernel indexes its tables by code.  ``_TILE_ELEMS`` rows at a time, so
+    a memmap is read in bounded pieces."""
+    for i0 in range(0, Xb.shape[0], _TILE_ELEMS):
+        c = np.asarray(Xb[i0:i0 + _TILE_ELEMS])
+        if c.size and (int(c.max()) >= n_bins or int(c.min()) < 0):
+            raise ValueError(f"bin codes outside [0, {n_bins})")
 
 
 def _node_values(y: np.ndarray, w: np.ndarray, params: TreeParams) -> np.ndarray:
@@ -215,7 +270,7 @@ def fit_tree_binned(Xb: np.ndarray, y: np.ndarray, w: np.ndarray,
     backend = resolve_tree_backend(params.tree_backend, device)
     rows = np.arange(Xb.shape[0], dtype=np.int64)
     task = (rows, np.asarray(w, dtype=np.float64), rng)
-    return _grow_trees(np.asarray(Xb), np.asarray(y), [task], params,
+    return _grow_trees(_as_code_matrix(Xb), np.asarray(y), [task], params,
                        binner, backend, device)[0]
 
 
@@ -230,8 +285,11 @@ def fit_forest_binned(Xb: np.ndarray, y: np.ndarray, inbag: np.ndarray,
     resolved against ``device`` (the card unless the caller asks for the
     CPU).  ``tree_block`` caps how many trees share a batch: 0 auto-sizes
     the cap so resident frontier state (~48 bytes per in-bag instance)
-    stays under ``_BATCH_BUDGET``; negative means all trees in one batch.  Trees are bit-identical to growing each alone with
-    its own RNG stream, on either backend.
+    stays under ``_BATCH_BUDGET``; negative means all trees in one batch.
+    Trees are bit-identical to growing each alone with its own RNG stream,
+    on either backend, from in-memory or from memmap codes (the torch
+    backend stages a memmap's rows per histogram call instead of copying
+    it to the device).
     """
     backend = resolve_tree_backend(
         backend if backend is not None else params.tree_backend, device)
@@ -243,8 +301,9 @@ def fit_forest_binned(Xb: np.ndarray, y: np.ndarray, inbag: np.ndarray,
         block = T
     else:
         block = max(1, int(tree_block))
-    Xb = np.asarray(Xb)
-    codes = device_codes(Xb, binner, device) if backend == "torch" else None
+    Xb = _as_code_matrix(Xb)
+    codes = device_codes(Xb, binner, device) \
+        if backend == "torch" and not _is_streamed(Xb) else None
     trees: List[Tree] = []
     for b0 in range(0, T, block):
         tasks = []
@@ -259,12 +318,12 @@ def fit_forest_binned(Xb: np.ndarray, y: np.ndarray, inbag: np.ndarray,
 def device_codes(Xb: np.ndarray, binner: Binner, device="cuda"
                  ) -> torch.Tensor:
     """The code matrix on the device, once per fit, as ``uint8`` (``int16``
-    past 256 bins) codes checked against ``binner.n_bins``."""
+    past 256 bins) codes checked against ``binner.n_bins``.  In-memory
+    codes only: a memmap is staged per histogram call instead."""
     Xb = np.asarray(Xb)
     if Xb.dtype not in (np.uint8, np.int16):
         Xb = Xb.astype(binner.code_dtype)
-    if Xb.size and (int(Xb.max()) >= binner.n_bins or int(Xb.min()) < 0):
-        raise ValueError(f"bin codes outside [0, {binner.n_bins})")
+    _check_codes(Xb, binner.n_bins)
     return torch.as_tensor(np.ascontiguousarray(Xb),
                            device=resolve_device(device))
 
@@ -381,6 +440,9 @@ def _hist_numpy(Xb: np.ndarray, rows: np.ndarray, w: np.ndarray,
     Feature-tiled so the transient index/weight arrays stay under
     ``_TILE_ELEMS`` elements, with int32 flat indices whenever
     ``gc * d * B * C < 2**31``.  Per-bin accumulation order is sample order.
+    A memmap ``Xb`` skips the (m, d) frontier gather and gathers each
+    feature tile's (m, td) codes instead, with one bincount a tile either
+    way, so the sums (and the trees) are bit-identical.
     """
     gc = len(bounds) - 1
     hist = np.zeros((gc, d, B, C), dtype=np.float64)
@@ -390,7 +452,8 @@ def _hist_numpy(Xb: np.ndarray, rows: np.ndarray, w: np.ndarray,
     size = gc * d * B
     idx_dt = np.int32 if size * C < 2 ** 31 else np.int64
     loc = np.repeat(np.arange(gc, dtype=idx_dt), np.diff(bounds))
-    codes = Xb[rows]                                  # (m, d) small dtype
+    stream = _is_streamed(Xb)
+    codes = None if stream else Xb[rows]              # (m, d) small dtype
     td_max = max(1, min(d, int(_TILE_ELEMS // max(m, 1))))
     if cls:
         yl = y_inst.astype(idx_dt)
@@ -400,7 +463,7 @@ def _hist_numpy(Xb: np.ndarray, rows: np.ndarray, w: np.ndarray,
     for f0 in range(0, d, td_max):
         f1 = min(f0 + td_max, d)
         td = f1 - f0
-        ct = codes[:, f0:f1]
+        ct = np.asarray(Xb[rows, f0:f1]) if stream else codes[:, f0:f1]
         base = (loc[:, None] * np.int64(td).astype(idx_dt)
                 + np.arange(td, dtype=idx_dt)[None, :]) * B \
             + ct.astype(idx_dt)
@@ -618,7 +681,8 @@ def _grow_trees(Xb: np.ndarray, y: np.ndarray, tasks: Sequence[tuple],
     of batch width or backend, which is what makes batched and per-tree
     growth, and both backends, bit-identical.  The ``torch`` backend runs
     on ``device`` (default the card) from ``codes``, the code matrix already
-    there (``device_codes``; made here when None).
+    there (``device_codes``; made here when None), or, for a memmap ``Xb``,
+    from the codes each histogram call stages (``codes`` is then unused).
     """
     n_all, d = Xb.shape
     B = int(binner.n_bins)
@@ -640,9 +704,15 @@ def _grow_trees(Xb: np.ndarray, y: np.ndarray, tasks: Sequence[tuple],
     yc = y.astype(np.int64) if cls else np.asarray(y, dtype=np.float64)
     use_torch = backend == "torch"
     if use_torch:
-        if codes is None:
-            codes = device_codes(Xb, binner, device)
-        dev = codes.device
+        staged = _is_streamed(Xb)
+        if staged:
+            _check_codes(Xb, B)
+            dev = resolve_device(device)
+            codes = None
+        else:
+            if codes is None:
+                codes = device_codes(Xb, binner, device)
+            dev = codes.device
         y_dev = torch.as_tensor(yc.astype(np.int32) if cls else yc,
                                 device=dev)
 
@@ -656,19 +726,43 @@ def _grow_trees(Xb: np.ndarray, y: np.ndarray, tasks: Sequence[tuple],
         row_range = (min(s[0] for s in spans), max(s[1] for s in spans)) \
             if spans else (0, 0)
 
-        def torch_hist(r: torch.Tensor, wv: torch.Tensor,
-                       bounds: np.ndarray, nn: int) -> torch.Tensor:
+        code_t = torch.uint8 if binner.code_dtype == np.uint8 \
+            else torch.int16
+
+        def stage(rows_h: np.ndarray) -> torch.Tensor:
+            """The codes of host rows ``rows_h``, gathered from the memmap
+            in this order into a fresh pinned buffer and copied up without
+            blocking (the caching host allocator keeps the buffer until its
+            copy has run, so no later gather can overwrite it early)."""
+            cpu = dev.type == "cpu"
+            buf = torch.empty((len(rows_h), d), dtype=code_t,
+                              pin_memory=not cpu)
+            out = buf.numpy()
+            if Xb.dtype == out.dtype:
+                np.take(Xb, rows_h, axis=0, out=out, mode="clip")
+            else:
+                out[...] = Xb[rows_h]
+            return buf if cpu else buf.to(dev, non_blocking=True)
+
+        def torch_hist(r: torch.Tensor, wv: torch.Tensor, bounds: np.ndarray,
+                       nn: int, rows_h: np.ndarray) -> torch.Tensor:
             """Device histograms of ``nn`` nodes whose samples (code rows
-            ``r``, weights ``wv``) lie in node order, node i's at
-            ``bounds[i] .. bounds[i + 1]`` (host offsets: the wrapper then
-            needs nothing back from the device)."""
-            kw = dict(rows=r, bounds=bounds, row_range=row_range)
+            ``r`` on the device, ``rows_h`` on the host; weights ``wv``) lie
+            in node order, node i's at ``bounds[i] .. bounds[i + 1]`` (host
+            offsets: the wrapper then needs nothing back from the device).
+            In-memory codes are read through ``r``; streamed codes are
+            staged for the call, so the kernel reads them row by row."""
+            if staged:
+                xb, kw = stage(rows_h), dict(bounds=bounds)
+            else:
+                xb, kw = codes, dict(rows=r, bounds=bounds,
+                                     row_range=row_range)
             if cls:
-                return hops.histogram(codes, None, y_dev[r], wv.float(), nn,
-                                      B, C, **kw)
+                return hops.histogram(xb, None, y_dev[r], wv.float(), nn, B,
+                                      C, **kw)
             yv = y_dev[r]
             wm = torch.stack([wv, wv * yv, wv * (yv * yv)], dim=1).float()
-            return hops.moments(codes, None, wm, nn, B, **kw)
+            return hops.moments(xb, None, wm, nn, B, **kw)
 
     stores: List[_TreeStore] = []
     acts: List[np.ndarray] = []      # per-tree active node ids (store ids)
@@ -818,7 +912,7 @@ def _grow_trees(Xb: np.ndarray, y: np.ndarray, tasks: Sequence[tuple],
             if all_direct:
                 if use_torch:
                     hist = torch_hist(rows_dev[s0:s1], w_dev[s0:s1], bch,
-                                      gcc)
+                                      gcc, rows_g[s0:s1])
                 else:
                     hist = _hist_numpy(Xb, rows_g[s0:s1], w_g[s0:s1],
                                        y_g[s0:s1], bch, d, B, C, cls)
@@ -833,7 +927,7 @@ def _grow_trees(Xb: np.ndarray, y: np.ndarray, tasks: Sequence[tuple],
                 if use_torch:
                     sel_dev = as_dev(sel)
                     h_dir = torch_hist(rows_dev[sel_dev], w_dev[sel_dev],
-                                       bnd_d, len(dn))
+                                       bnd_d, len(dn), rows_g[sel])
                     hist = torch.empty((gcc, d, B, C), dtype=torch.float32,
                                        device=dev)
                     hist[as_dev(dn)] = h_dir

@@ -708,6 +708,109 @@ def test_bounds_call_does_not_synchronise(dev, monkeypatch, mode):
                       bounds=bounds[:-1])
 
 
+@pytest.mark.parametrize("mode", ["fold", "rank"])
+def test_staged_codes_call_equals_device_resident(dev, monkeypatch, mode):
+    """The trainer's memmap path: the call's rows gathered on the host in
+    node order, staged from pinned memory and read with ``rows=None``,
+    give the bits of the same call on the device-resident code matrix
+    through row ids, K3 and K4, in both kernel modes; neither the staging
+    copy nor the calls synchronise."""
+    from repro_torch.kernels.histogram.ops import histogram, moments
+    _force_mode(monkeypatch, mode)
+    for n, n_nodes, d, n_bins, C in [(50_000, 100, 20, 64, 7),
+                                     (6000, 5, 40, 256, 7),
+                                     (3000, 3, 3, 300, 200)]:
+        rng = np.random.default_rng(n_nodes + 1)
+        xb, node, y, w, rows = _hist_inputs(rng, n, n_nodes, d, n_bins, C,
+                                            dev, integer=False,
+                                            n_rows=n + 5)
+        bounds = np.searchsorted(node.cpu().numpy(), np.arange(n_nodes + 1))
+        span = (int(rows.min()), int(rows.max()))
+        wm = torch.stack([w, w * 2, w * w], 1)
+        pinned = torch.from_numpy(
+            xb.cpu().numpy()[rows.cpu().numpy()]).pin_memory()
+        n0 = histogram.launches + moments.launches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            staged = pinned.to(dev, non_blocking=True)
+            want = histogram(xb, None, y, w, n_nodes, n_bins, C, rows=rows,
+                             bounds=bounds, row_range=span)
+            got = histogram(staged, None, y, w, n_nodes, n_bins, C,
+                            bounds=bounds)
+            want_m = moments(xb, None, wm, n_nodes, n_bins, rows=rows,
+                             bounds=bounds, row_range=span)
+            got_m = moments(staged, None, wm, n_nodes, n_bins,
+                            bounds=bounds)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert histogram.launches + moments.launches == n0 + 4
+        assert torch.equal(got, want) and torch.equal(got_m, want_m)
+
+
+@pytest.mark.parametrize("model", ["RandomForest", "GradientBoostedTrees"])
+def test_memmap_fit_on_the_card_stages_codes(dev, tmp_path, model):
+    """A fit whose codes stream to a memmap (``xb_scratch``) runs K3/K4 on
+    the card on codes staged per call, grows the in-memory fit's trees bit
+    for bit and leaves the scratch directory empty."""
+    from repro_torch.data.synthetic import gaussian_classes
+    from repro_torch.forest import ensemble, training
+    from repro_torch.kernels.histogram.ops import histogram, moments
+    X, y = gaussian_classes(4000, d=12, n_classes=2, seed=6)
+    kw = dict(n_trees=4, seed=1, device="cuda")
+    card = getattr(ensemble, model)(**kw).fit(X, y)
+    real = training.device_codes
+
+    def whole_copy(Xb, *a, **k):
+        assert not isinstance(Xb, np.memmap), "memmap copied up whole"
+        return real(Xb, *a, **k)
+    monkeypatch = pytest.MonkeyPatch()
+    monkeypatch.setattr(training, "device_codes", whole_copy)
+    monkeypatch.setattr(ensemble, "device_codes", whole_copy)
+    try:
+        n0 = histogram.launches + moments.launches
+        staged = getattr(ensemble, model)(xb_scratch=str(tmp_path),
+                                          **kw).fit(X, y)
+        assert histogram.launches + moments.launches > n0
+    finally:
+        monkeypatch.undo()
+    for a, b in zip(card.trees_, staged.trees_):
+        for f in ("feature", "threshold", "left", "right", "leaf_id",
+                  "value", "n_node_samples"):
+            assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_budgeted_engine_keeps_the_bits_on_the_card(dev, tmp_path):
+    """Under a memory budget a CUDA engine's K2 blocks hold 32 rows
+    instead of 4,096 and its products go a few columns at a time: blocks,
+    top-k and (class-bucketed) squared row sums keep the in-memory
+    engine's bits (the sums reduce 32 aligned rows at a time, whatever the
+    block height), products agree within 1e-15."""
+    from repro_torch.core.api import ForestKernel
+    from repro_torch.data.synthetic import gaussian_classes
+    X, y = gaussian_classes(5000, d=10, n_classes=4, seed=3)
+    kw = dict(n_trees=20, seed=0, device="cuda")
+    a = ForestKernel(**kw).fit(X, y)
+    b = ForestKernel(scratch_dir=str(tmp_path), memory_budget_bytes=1 << 20,
+                     **kw).fit(X, y)
+    ea, eb = a.engine, b.engine
+    assert (ea._op_row_chunk(4096), eb._op_row_chunk(4096)) == (4096, 32)
+    assert eb._col_chunk(40) < 40
+    Xq = X[:300] + 1e-3
+    for u, v in [(ea.squared_row_sums(y, 4), eb.squared_row_sums(y, 4)),
+                 (ea.squared_row_sums(), eb.squared_row_sums()),
+                 (ea.squared_row_sums(y, 4, X=Xq),
+                  eb.squared_row_sums(y, 4, X=Xq)),
+                 (ea.kernel_block(np.arange(100)),
+                  eb.kernel_block(np.arange(100)))] + \
+            list(zip(ea.topk(7), eb.topk(7))):
+        assert torch.equal(u, v)
+    V = np.random.default_rng(0).random((5000, 40))
+    assert float((ea.matmat(V) - eb.matmat(V)).abs().max()) <= 1e-15
+    assert float((ea.predict(y, 4) - eb.predict(y, 4)).abs().max()) <= 1e-15
+
+
 @pytest.mark.parametrize("model,task", [("RandomForest", "classification"),
                                         ("ExtraTrees", "classification"),
                                         ("RandomForest", "regression"),

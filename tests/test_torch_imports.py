@@ -35,8 +35,8 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-# the application layer, and the observability, snapshot and serving
-# layers over it
+# the application layer, the observability, snapshot and serving layers
+# over it, the out-of-core modules and the example twins
 SLICE_MODULES = (
     "repro_torch.applications", "repro_torch.applications.embed",
     "repro_torch.applications.imputation",
@@ -47,13 +47,18 @@ SLICE_MODULES = (
     "repro_torch.obs.profile", "repro_torch.obs.http",
     "repro_torch.core.snapshot", "repro_torch.serve",
     "repro_torch.serve.proximity", "repro_torch.serve.reliability",
-    "repro_torch.serve_proximities")
+    "repro_torch.serve_proximities", "repro_torch.core.factorization",
+    "repro_torch.core.context", "repro_torch.core.engine",
+    "repro_torch.forest.training", "repro_torch.forest.ensemble",
+    "repro_torch.data.synthetic", "repro_torch.quickstart",
+    "repro_torch.paper_pipeline", "repro_torch.proximity_applications")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
 def test_every_application_module_is_covered(module):
     """The import check above walks the package; the application, obs,
-    snapshot and serving modules are among what it imports."""
+    snapshot, serving and out-of-core modules and the twins are among what
+    it imports."""
     assert module in _module_names()
 
 

@@ -17,6 +17,7 @@ Also, across the packages (one archive format):
 Everything runs on the CPU (``device="cpu"``).
 """
 import json
+import os
 
 import numpy as np
 import pytest
@@ -294,20 +295,35 @@ def test_float32_archive_refused(ref_archives, tmp_path):
 def test_out_of_core_settings_load_in_memory(ref_archives, snap_setup,
                                              tmp_path):
     """An archive that records a scratch directory and a memory budget
-    loads in memory, with the same answers."""
+    loads with both honoured (the kernel keeps them and its engine is
+    built under the budget, its factors spilled to the scratch directory
+    when they exceed it), with the same answers; the settings cross back
+    into the reference through the port's own archive."""
     ref, path = ref_archives["gap"]
+    scratch = str(tmp_path / "scratch")
 
     def ooc(arrays):
         manifest = json.loads(bytes(arrays["manifest"].tobytes()).decode())
-        manifest["config"].update(scratch_dir=str(tmp_path / "scratch"),
-                                  memory_budget_bytes=1 << 20)
+        manifest["config"].update(scratch_dir=scratch,
+                                  memory_budget_bytes=1 << 10)
         arrays["manifest"] = np.frombuffer(json.dumps(manifest).encode(),
                                            dtype=np.uint8)
 
     port = load_kernel(_tamper(path, tmp_path / "ooc.npz", ooc),
                        device="cpu")
-    assert not (tmp_path / "scratch").exists()
+    assert port.scratch_dir == scratch
+    assert port.memory_budget_bytes == 1 << 10
+    assert port.engine.memory_budget_bytes == 1 << 10
+    assert port.engine.memory_bytes()["budget"] == 1 << 10
+    # past the budget, the CSR factors live in unlinked scratch memmaps
+    assert isinstance(port.engine.Q.data, np.memmap)
+    assert os.listdir(scratch) == []
     _ops_agree(port, ref, snap_setup["y"], snap_setup["Xq"])
+    again = tmp_path / "again.npz"
+    save_kernel(port, again)
+    back = RefKernel.load(again, engine_backend="scipy")
+    assert back.scratch_dir == scratch
+    assert back.memory_budget_bytes == 1 << 10
 
 
 # ---------------------------------------------------------------------------
