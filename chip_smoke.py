@@ -81,18 +81,31 @@
    sums and scores against the host, the imputation, every served answer
    against a direct call, each stage's device transient at most 4 GiB and
    the scratch directory removed; (c) one K3 call on staged codes at the
-   root level against its plain version and the device-resident call.
+   root level against its plain version and the device-resident call;
+10. drives the LM serving path (``repro_torch.models``, ``serve``,
+   ``train/steps``), held to the bf16 contract of ``tests/_lm_contract.py``:
+   (a) every arch at ``reduced()`` widths against the port's CPU path
+   (forward, teacher-forced decode, caches); (b) hymba_1p5b at its
+   published width and depth, prefill and a 1,280-step decode at B=2
+   (past the 1,024 window) held against the forward, timed and profiled;
+   (c) its widths at depth 2 against the CPU path; (d) the
+   continuous-batching ``ServingEngine`` at full width (4 slots, 8 seeded
+   requests), every request against its lane of one batched teacher-forced
+   decode; (e) the ``proximity_head_lm`` twin, counted: forests fitted on
+   the card LM's features on the card and on the host (trees equal, ops
+   within 1e-8), then K3, K1 and K2 at the twin's shapes against their
+   plain versions.
 
 Last it prints one ``{"kernels": [...]}`` line (launches on the main, GBT,
-applications, serving and out-of-core paths, errors, kernel / plain /
+applications, serving, out-of-core and LM proximity-head paths, errors, kernel / plain /
 library times and the least time the card could take), the card's name
 and power limit, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It exits non-zero at once when torch finds no CUDA device or when the
-port's sources are not beside it.  About 9 minutes on one H100, most of
-it the host computations the card's results are held against and the
-out-of-core row.
+port's sources are not beside it.  About 10-11 minutes on one H100, most
+of it the host computations the card's results are held against, the
+out-of-core row and the LM decode (host-bound).
 """
 import dataclasses
 import json
@@ -139,6 +152,15 @@ OOC_WINDOW = 65_536      # rows of each streamed-code window checked
 OOC_TRANSIENT_MAX = 4096 << 20  # the row's own ceiling for a 512 MiB budget
 OOC_RTOL = 1e-10         # outlier sums and scores against the host
 ATOL_PRODUCT = 1e-15     # budgeted products (index_add_ atomics) vs phase 1
+# phase 10: the LM serving path (hymba_1p5b at its published width)
+LM_ARCH = "hymba_1p5b"
+LM_B, LM_S = 2, 1280          # past the 1,024 window; 5 SSD chunks of 256
+LM_AGREE = 0.9                # decode vs forward argmax (the reference's)
+LM_SEGMENTS = (0, 1008, 1248)  # (c): CPU decode from each, 32 steps
+LM_SEG_LEN = 32
+LM_SLOTS, LM_MAX_SEQ, LM_REQS, LM_NEW = 4, 256, 8, 16
+LM_PROMPT = (16, 48)          # (d): prompt lengths, inclusive
+LM_PROFILE_STEPS = 4          # (b): decode steps under the profiler
 TREE_FIELDS = ("feature", "threshold", "left", "right", "leaf_id", "value",
                "n_node_samples")
 
@@ -636,6 +658,421 @@ def phase9(torch, dev, n_rows, wrappers):
         check(ooc_launches[name] > 0,
               f"{name} was not launched on the out-of-core path")
     return ooc_launches
+
+
+def lm_teacher_forced(torch, lm, params, cfg, tokens, cache, start, n):
+    """Decode ``tokens[:, start:start + n]`` one step each from ``cache``;
+    returns the (B, n, V) logits and the cache."""
+    logits = []
+    for pos in range(start, start + n):
+        lg, cache = lm.decode_step(params, cfg, tokens[:, pos:pos + 1],
+                                   cache, pos)
+        logits.append(lg[:, 0])
+    return torch.stack(logits, 1), cache
+
+
+def host_cache(cache):
+    return {k: v.detach().to("cpu", copy=True) for k, v in cache.items()}
+
+
+def phase10(torch, dev, wrappers):
+    """The LM serving path on the card: (a) every reduced arch against the
+    port's CPU path; (b) hymba_1p5b at its published width and depth,
+    prefill and a 1,280-step decode held against the forward, timed and
+    profiled; (c) its widths at depth 2 against the CPU path; (d) the
+    continuous-batching engine at full width; (e) the proximity-head twin,
+    counted, each of its kernels held against its plain version at the
+    twin's shapes.  Returns (e)'s launches and those holds' errors."""
+    import copy
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _lm_contract import (BF16_REL, ROUTER_TIE, bf16_contract,
+                              logit_stats, np32, router_gaps)
+    from repro_torch import proximity_head_lm as twin
+    from repro_torch.configs.base import ALL_ARCHS, get_config
+    from repro_torch.data.tokens import SyntheticCorpus
+    from repro_torch.kernels.block_prox.ops import block_prox
+    from repro_torch.kernels.block_prox.ref import block_prox_ref
+    from repro_torch.kernels.histogram.ops import histogram
+    from repro_torch.kernels.histogram.ref import histogram_ref
+    from repro_torch.kernels.leaf_route.ops import route
+    from repro_torch.kernels.leaf_route.ref import route_ref
+    from repro_torch.models import lm
+    from repro_torch.serve import Request, ServingEngine
+    from repro_torch.train.steps import make_prefill_step
+    t10 = time.perf_counter()
+    cpu = torch.device("cpu")
+
+    # (a) every arch at reduced widths, card against the CPU path (bf16)
+    rows = []
+    for arch in ALL_ARCHS:
+        cfg = get_config(arch).reduced()
+        if cfg.family == "moe":   # drop-free, as the reference's own test
+            cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+        params = lm.init_params(cfg, 0, device=dev)
+        host = copy.deepcopy(params).to(cpu)
+        rng = np.random.default_rng(0)
+        tokens = rng.integers(0, cfg.vocab, (2, 12))
+        img = None
+        if cfg.family == "vlm":
+            img = torch.from_numpy(rng.normal(
+                size=(2, cfg.prefix_len, cfg.d_model)).astype(np.float32))
+        gaps_f, gaps_d = [], []
+        fwd_d, _ = lm.forward(params, cfg, tokens, image_embed=img,
+                              attn_chunk=4)
+        with router_gaps(gaps_f):
+            fwd_h, _ = lm.forward(host, cfg, tokens, image_embed=img,
+                                  attn_chunk=4)
+        skip = (np.any([g.reshape(2, -1) < ROUTER_TIE for g in gaps_f],
+                       axis=0)[:, -12:] if gaps_f else None)
+        gap_f, dec_f = bf16_contract(fwd_d, fwd_h, skip, f"{arch} forward")
+        row = f"{arch} forward {gap_f:.4f} ({dec_f} decided)"
+        if cfg.family != "vlm":
+            cd = lm.init_cache(cfg, 2, 16, device=dev)
+            ch = lm.init_cache(cfg, 2, 16, device=cpu)
+            dd, cd = lm_teacher_forced(torch, lm, params, cfg, tokens, cd,
+                                       0, 12)
+            with router_gaps(gaps_d):
+                dh, ch = lm_teacher_forced(torch, lm, host, cfg, tokens, ch,
+                                           0, 12)
+            skip = None
+            if gaps_d:
+                skip = (np.stack(gaps_d).reshape(12, cfg.n_layers, 2)
+                        < ROUTER_TIE).any(1).T
+            gap_d, dec_d = bf16_contract(dd, dh, skip, f"{arch} decode")
+            cache_gap = 0.0
+            if skip is None or not skip.any():
+                for k in ch:
+                    r = np32(ch[k])
+                    e = float(np.abs(np32(cd[k]) - r).max())
+                    check(e <= BF16_REL * np.abs(r).max(),
+                          f"{arch} cache {k}: {e}")
+                    cache_gap = max(cache_gap, e / max(np.abs(r).max(),
+                                                       1e-30))
+            row += (f", decode {gap_d:.4f} ({dec_d} decided), caches "
+                    f"{cache_gap:.4f}")
+        rows.append(row)
+    print("phase 10 (a) reduced archs, card vs CPU path, largest logit gap "
+          "/ position max|logit|: " + "; ".join(rows)
+          + f" ({time.perf_counter() - t10:.1f} s)", flush=True)
+
+    # (b) hymba_1p5b at full width and depth
+    tb = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()     # what earlier phases still hold
+    t = time.perf_counter()
+    params = lm.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    # param_count() is the reference's analytic count: it leaves out the
+    # SSM conv bias and counts the conv weights over d_inner channels only
+    conv_ch = cfg.d_inner + 2 * cfg.ssm_state
+    expect = cfg.param_count() + cfg.n_layers * (
+        conv_ch * (cfg.ssm_conv + 1) - cfg.d_inner * cfg.ssm_conv)
+    check(n_params == expect, f"{n_params} parameters, expected {expect}")
+    print(f"phase 10 (b) {LM_ARCH}: {n_params} parameters "
+          f"(param_count() {cfg.param_count()}; {n_params * 4 / 1e9:.3f} GB "
+          f"float32) drawn on the card in {time.perf_counter() - t:.2f} s",
+          flush=True)
+    corpus = SyntheticCorpus(vocab=cfg.vocab, seed=1)
+    tokens = corpus.sample(np.random.default_rng(0), LM_B, LM_S)[:, :LM_S]
+    tok_d = torch.from_numpy(tokens).to(dev)
+    prefill = make_prefill_step(cfg)
+    pre = {}
+    for name in ("cold", "warm"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fwd = prefill(params, {"tokens": tok_d})
+        torch.cuda.synchronize()
+        pre[name] = time.perf_counter() - t
+    check(fwd.shape == (LM_B, LM_S, cfg.vocab), f"prefill shape {fwd.shape}")
+    check(bool(torch.isfinite(fwd.float()).all()), "prefill non-finite")
+    cache = lm.init_cache(cfg, LM_B, LM_S, device=dev)
+    dec = torch.empty_like(fwd)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    snaps = {}
+    for pos in range(LM_S):
+        lg, cache = lm.decode_step(params, cfg, tok_d[:, pos:pos + 1], cache,
+                                   pos)
+        dec[:, pos] = lg[:, 0]
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() - base
+    ms_tok = dec_s * 1e3 / LM_S
+    gap, scale, margin, agree = logit_stats(dec, fwd, "decode vs prefill")
+    gap = gap / scale
+    decided = margin > BF16_REL * scale
+    agree_dec = float(agree[decided].mean()) if decided.any() else 1.0
+    check(decided.sum() > 0, "no position has a decided argmax")
+    check(agree_dec >= LM_AGREE, f"decode vs forward argmax agreement "
+          f"{agree_dec:.4f} < {LM_AGREE}")
+    bytes_bf16 = n_params * 2
+    print(f"phase 10 (b) prefill B={LM_B} S={LM_S}: cold {pre['cold']:.3f} "
+          f"s, warm {pre['warm']:.3f} s; teacher-forced decode {LM_S} steps "
+          f"{dec_s:.2f} s = {ms_tok:.2f} ms a token (a step of {LM_B} "
+          f"lanes); byte bound {bytes_bf16 / HBM_BYTES_S * 1e3:.3f} ms "
+          f"({bytes_bf16 / 1e9:.3f} GB of bf16 weights; the float32 weights "
+          f"the port reads {n_params * 4 / HBM_BYTES_S * 1e3:.3f} ms); peak "
+          f"device memory {peak / 2 ** 30:.3f} GiB above the phase's start",
+          flush=True)
+    span = LM_S // 10
+    per_pos = ", ".join(f"{p}-{p + span - 1}: {gap[:, p:p + span].max():.4f}"
+                        for p in range(0, LM_S, span))
+    print(f"phase 10 (b) decode vs forward: logit gap / max|logit|, max over "
+          f"lanes and each span of positions: {per_pos}; overall max "
+          f"{gap.max():.4f}, median {np.median(gap):.4f}; argmax agreement "
+          f"{float(agree.mean()):.4f} at all {agree.size} positions, "
+          f"{agree_dec:.4f} at the {int(decided.sum())} decided ones",
+          flush=True)
+    # where a decode step's device time goes
+    prof_cache = {k: v.clone() for k, v in cache.items()}
+
+    def decode_window():
+        for i in range(LM_PROFILE_STEPS):
+            lm.decode_step(params, cfg, tok_d[:, i:i + 1], prof_cache,
+                           LM_S - LM_PROFILE_STEPS + i)
+    # one profiled window: the device kernels (and copies) it ran, and
+    # the device time of the kernels each aten op launched, its children's
+    # included (aten::_to_copy is every dtype cast: the per-use float32 ->
+    # bf16 weight casts, and the activations')
+    from torch.profiler import ProfilerActivity, profile
+    t = time.perf_counter()
+    for _ in range(3):      # the profiler can lose a short window's events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            decode_window()
+            torch.cuda.synchronize()
+        dev_ms, n_k, by_op, n_ops = 0.0, 0, {}, 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                us = getattr(e, "self_device_time_total", None)
+                if us is None:
+                    us = e.self_cuda_time_total
+                dev_ms += us / 1e3 / LM_PROFILE_STEPS
+                n_k += e.count / LM_PROFILE_STEPS
+            else:
+                us = getattr(e, "device_time_total", None)
+                if us is None:
+                    us = e.cuda_time_total
+                by_op[e.key] = us / 1e3 / LM_PROFILE_STEPS
+                n_ops += e.count
+        if dev_ms > 0:
+            break
+    check(dev_ms > 0, "the profiler caught no device time in 3 windows")
+    prof_s = time.perf_counter() - t
+    ops = ("aten::_to_copy", "aten::mm", "aten::bmm", "aten::repeat_interleave",
+           "aten::index_put_", "aten::softmax", "aten::cat")
+    cast_bytes = n_params * 6               # read float32, write bf16
+    print(f"phase 10 (b) a decode step under the profiler "
+          f"({LM_PROFILE_STEPS} steps): {n_k:.0f} device kernels and "
+          f"copies, {dev_ms:.3f} ms on the device, {n_ops / LM_PROFILE_STEPS:.0f}"
+          f" aten op calls (nested calls counted); device ms by op (children "
+          f"included): " + ", ".join(
+              f"{k} {by_op.get(k, 0.0):.3f}" for k in ops)
+          + f"; the weight casts move {cast_bytes / 1e9:.2f} GB a step "
+          f"(>= {cast_bytes / HBM_BYTES_S * 1e3:.3f} ms); the device is "
+          f"idle {1 - dev_ms / ms_tok:.3f} of an unprofiled step "
+          f"({ms_tok:.2f} ms); profiling and reading it {prof_s:.1f} s; "
+          f"(b) {time.perf_counter() - tb:.1f} s",
+          flush=True)
+    del fwd, dec, prof_cache
+
+    # (c) full width, depth 2: layer 0 global, layer 1 SWA
+    cfg2 = dataclasses.replace(cfg, n_layers=2, global_layers=(0,))
+    p2 = lm.init_params(cfg2, 2, device=dev)
+    h2 = copy.deepcopy(p2).to(cpu)
+    t = time.perf_counter()
+    f_d, _ = lm.forward(p2, cfg2, tok_d)
+    f_h, _ = lm.forward(h2, cfg2, tokens)
+    gf, df = bf16_contract(f_d, f_h, what="depth-2 forward")
+    # the card decodes all positions; the CPU path decodes each segment
+    # from the card's cache at its start (the second crosses the window)
+    c_d = lm.init_cache(cfg2, LM_B, LM_S, device=dev)
+    seg, seg_rows = {}, []
+    for pos in range(LM_S):
+        if pos in LM_SEGMENTS:
+            seg[pos] = {"start": host_cache(c_d), "logits": []}
+        lg, c_d = lm.decode_step(p2, cfg2, tok_d[:, pos:pos + 1], c_d, pos)
+        for s0, d in seg.items():
+            if s0 <= pos < s0 + LM_SEG_LEN:
+                d["logits"].append(lg[:, 0])
+                if pos == s0 + LM_SEG_LEN - 1:
+                    d["end"] = host_cache(c_d)
+    for s0, d in seg.items():
+        lh, ch = lm_teacher_forced(torch, lm, h2, cfg2, tokens, d["start"],
+                                   s0, LM_SEG_LEN)
+        g, n = bf16_contract(torch.stack(d["logits"], 1), lh,
+                             what=f"depth-2 decode from {s0}")
+        ce = 0.0
+        for k, v in ch.items():
+            r = np32(v)
+            e = float(np.abs(np32(d["end"][k]) - r).max())
+            check(e <= BF16_REL * np.abs(r).max(), f"depth-2 cache {k} after "
+                  f"{s0}: {e}")
+            ce = max(ce, e / max(np.abs(r).max(), 1e-30))
+        seg_rows.append(f"positions {s0}-{s0 + LM_SEG_LEN - 1}: logits "
+                        f"{g:.4f} ({n} decided), caches {ce:.4f}")
+    print(f"phase 10 (c) {LM_ARCH} widths at depth 2 (layer 0 global, 1 "
+          f"SWA), card vs CPU path, largest gap / max|.|: forward B={LM_B} "
+          f"S={LM_S} {gf:.4f} ({df} decided); decode " + "; ".join(seg_rows)
+          + f" ({time.perf_counter() - t:.1f} s)", flush=True)
+    del p2, h2, f_d, c_d
+
+    # (d) the continuous-batching engine at full width
+    rng = np.random.default_rng(2)
+    corpus2 = SyntheticCorpus(vocab=cfg.vocab, seed=2)
+    reqs = []
+    for i in range(LM_REQS):
+        n = int(rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1))
+        reqs.append(Request(uid=i, prompt=corpus2.sample(rng, 1, n)[0, :n],
+                            max_new_tokens=LM_NEW))
+    eng = ServingEngine(cfg, params, n_slots=LM_SLOTS, max_seq=LM_MAX_SEQ)
+    torch.cuda.synchronize()
+    td = t = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    ticks = 0
+    while eng.queue or eng.active:
+        eng.step()
+        ticks += 1
+    eng_s = time.perf_counter() - t
+    st = eng.stats()
+    check(st["requests"] == LM_REQS and st["tokens"] == LM_REQS * LM_NEW,
+          f"engine stats {st}")
+    # every finished request teacher-forced through one batched decode from
+    # position 0, a lane each (lanes never mix); a lane past its end is fed
+    # its last token and read no more
+    fin = sorted(eng.finished, key=lambda r: r.uid)
+    seqs = [np.concatenate([r.prompt, np.asarray(r.generated, np.int32)])
+            for r in fin]
+    n_max = max(len(q) for q in seqs)
+    toks = np.stack([np.pad(q, (0, n_max - len(q)), mode="edge")
+                     for q in seqs])
+    lg_b, _ = lm_teacher_forced(
+        torch, lm, params, cfg, torch.from_numpy(toks).to(dev),
+        lm.init_cache(cfg, len(fin), LM_MAX_SEQ, device=dev), 0, n_max - 1)
+    n_dec = 0
+    for b, r in enumerate(fin):
+        P = len(r.prompt)
+        ref = np32(lg_b[b, P - 1:len(seqs[b]) - 1])
+        top2 = np.sort(ref, axis=-1)[..., -2:]
+        decided = top2[:, 1] - top2[:, 0] > BF16_REL * np.abs(ref).max(-1)
+        got = np.asarray(r.generated)
+        check((ref.argmax(-1) == got)[decided].all(),
+              f"request {r.uid}: engine tokens differ from its lane's "
+              f"decode at {np.flatnonzero(decided & (ref.argmax(-1) != got))}")
+        n_dec += int(decided.sum())
+    print(f"phase 10 (d) ServingEngine {LM_ARCH} full width, {LM_SLOTS} "
+          f"slots, max_seq {LM_MAX_SEQ}, {LM_REQS} requests of "
+          f"{[len(r.prompt) for r in reqs]} prompt tokens + {LM_NEW} new: "
+          f"{ticks} ticks in {eng_s:.3f} s ({eng_s * 1e3 / ticks:.1f} ms a "
+          f"tick, admissions included), {st['tokens'] / eng_s:.1f} generated "
+          f"tokens/s, mean latency {st['mean_latency_s']:.3f} s, mean TTFT "
+          f"{st['mean_ttft_s']:.3f} s; every request equals its lane of a "
+          f"{len(fin)}-lane teacher-forced decode ({n_max - 1} steps) at its "
+          f"{n_dec} decided positions ((d) "
+          f"{time.perf_counter() - td:.1f} s)", flush=True)
+    del eng, params, cache
+
+    # (e) the proximity-head twin: LM features once on the card, forests
+    # on the card (counted) and on the host
+    t = time.perf_counter()
+    feats, labels = twin.features(device=str(dev))
+    for f in wrappers.values():
+        f.launches = 0
+    fk = twin.fit_head(feats, labels, device=str(dev))
+    idx, val = fk.topk(k=4)
+    pred = fk.predict()
+    Z = fk.leaf_pca(n_components=8).transform(fk.Q_)
+    torch.cuda.synchronize()
+    lm_launches = {k: f.launches for k, f in wrappers.items()}
+    for name in ("leaf_route", "block_prox", "histogram"):
+        check(lm_launches[name] > 0, f"{name} not launched by the twin")
+    hk = twin.fit_head(feats, labels, device="cpu")
+    same_trees(fk.forest.trees_, hk.forest.trees_, "proximity-head forest")
+    _, hv = hk.topk(k=4)
+    n_cls = int(labels.max()) + 1
+    e_topk = max_err(val, hv)
+    e_pred = max_err(fk.engine.predict(fk.ctx.y, n_cls),
+                     hk.engine.predict(hk.ctx.y, n_cls))
+    check(e_topk <= ATOL_OPS and e_pred <= ATOL_OPS,
+          f"twin ops: topk {e_topk}, predict {e_pred}")
+    acc = float((pred.cpu().numpy() == labels).mean())
+    print(f"phase 10 (e) proximity_head_lm: features {feats.shape} from the "
+          f"card LM, {twin.N_TREES} trees equal to the host fit's, top-k "
+          f"{e_topk:.2e} and predict scores {e_pred:.2e} from the CPU "
+          f"engine, label recovery {acc:.3f}, leaf-PCA {Z.shape}; launches "
+          f"K1/K2/K3/K4 {'/'.join(str(v) for v in lm_launches.values())} "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
+
+    # each kernel of (e) against its plain version on the twin's card
+    # tensors (not counted): K3 at the root level over the codes (every
+    # tree's in-bag rows, bootstrap counts as weights, as the trainer calls
+    # it), K1 on the fitted forest's tables, K2 on topk's block (every
+    # training row) in the form the engine picks, and in the other form
+    forest, e = fk.forest, fk.engine
+    T, n_bins = forest.n_trees, forest.binner_.n_bins
+    codes = torch.as_tensor(forest.binner_.transform(feats), device=dev)
+    rows_t = [np.flatnonzero(forest.inbag_[i]) for i in range(T)]
+    rows_cat = np.concatenate(rows_t)
+    bounds = np.concatenate([[0], np.cumsum([len(r) for r in rows_t])])
+    rows_d = torch.as_tensor(rows_cat, dtype=torch.int32, device=dev)
+    node_d = torch.as_tensor(np.repeat(np.arange(T), np.diff(bounds)),
+                             dtype=torch.int32, device=dev)
+    y_d = torch.as_tensor(labels[rows_cat], dtype=torch.int32, device=dev)
+    w_d = torch.as_tensor(np.concatenate(
+        [forest.inbag_[i, r] for i, r in enumerate(rows_t)]),
+        dtype=torch.float32, device=dev)
+    X_d = torch.as_tensor(feats, dtype=torch.float64, device=dev)
+    tb = forest.route_tables_
+    ix = e.leaf_index() if e.leaf_mode() else None
+    calls = {  # name: (kernel call, plain version)
+        "histogram": (
+            lambda: histogram(codes, None, y_d, w_d, T, n_bins, n_cls,
+                              rows=rows_d, bounds=bounds,
+                              row_range=(int(rows_cat.min()),
+                                         int(rows_cat.max()))),
+            lambda: histogram_ref(codes[rows_d.long()], node_d, y_d, w_d, T,
+                                  n_bins, n_cls)),
+        "leaf_route": (lambda: route(X_d, tb),
+                       lambda: route_ref(X_d, *tb.flat(), tb.n_trees,
+                                         tb.max_nodes)),
+        "block_prox": (lambda: block_prox(e.gl, e.q, e.gl, e.w, index=ix),
+                       lambda: block_prox_ref(e.gl, e.q, e.gl, e.w))}
+    holds, times = {}, {}
+    for name, (call, plain) in calls.items():
+        got = call()
+        holds[name] = max_err(got, plain())
+        if name != "block_prox":
+            check(torch.equal(got, plain()), f"{name} != its plain version "
+                  f"on the proximity head")
+        times[name] = (cuda_ms(torch, call, 5), cuda_ms(torch, plain, 2))
+    check(holds["block_prox"] <= ATOL_BLOCK, f"block_prox on the proximity "
+          f"head: error {holds['block_prox']} > {ATOL_BLOCK}")
+    ix_other = e.leaf_index() if ix is None else None
+
+    def k2_other():
+        return block_prox(e.gl, e.q, e.gl, e.w, index=ix_other)
+    check(torch.equal(k2_other().view(torch.int64),
+                      calls["block_prox"][0]().view(torch.int64)),
+          "block_prox on the proximity head: leaf and dense forms differ")
+    other_ms = cuda_ms(torch, k2_other, 5)
+    print(f"phase 10 (e) kernels against their plain versions on the twin's "
+          f"tensors (ms a call, plain ms): K3 root level {T} nodes x "
+          f"{len(rows_cat)} instances x {feats.shape[1]} x {n_bins} x {n_cls} "
+          f"bit for bit {times['histogram'][0]:.4f} / "
+          f"{times['histogram'][1]:.3f}; K1 {X_d.shape[0]} x {T} trees "
+          f"(M={tb.max_nodes}, {feats.shape[1]} features) bit for bit "
+          f"{times['leaf_route'][0]:.4f} / {times['leaf_route'][1]:.3f}; K2 "
+          f"{e.gl.shape[0]} x {e.gl.shape[0]} x {T} in the "
+          f"{'leaf' if ix is not None else 'dense'} form (leaf density "
+          f"{e._leaf_density:.5f}), err {holds['block_prox']:.1e} "
+          f"{times['block_prox'][0]:.4f} / {times['block_prox'][1]:.3f} "
+          f"(the other form same bits, {other_ms:.4f} ms)",
+          flush=True)
+    print(f"phase 10 wall: {time.perf_counter() - t10:.1f} s", flush=True)
+    return lm_launches, holds
 
 
 def main() -> int:
@@ -1919,6 +2356,9 @@ def main() -> int:
     budget_check(torch, dev, fk, Xtr, ytr, Xq, Xte, rows)
     ooc_launches = phase9(torch, dev, OOC_ROWS, wrappers)
 
+    # ---- phase 10: the LM serving path on the card ----
+    lm_launches, lm_holds = phase10(torch, dev, wrappers)
+
     # ---- bounds, from this run's shapes and data ----
     # K1 reads X once, each real node's 16-byte record once (not the
     # padding up to M) and writes the (n, T) int32 leaves
@@ -1960,7 +2400,7 @@ def main() -> int:
 
     def total(name):
         return launches[name] + gbt_launches[name] + app_launches[name] \
-            + serve_launches[name] + ooc_launches[name]
+            + serve_launches[name] + ooc_launches[name] + lm_launches[name]
     kernels = [
         {"name": "leaf_route", "route": "cuda",
          "source": "src/repro_torch/kernels/leaf_route/csrc/leaf_route.cu",
@@ -1972,14 +2412,16 @@ def main() -> int:
         {"name": "block_prox", "route": "cuda",
          "source": "src/repro_torch/kernels/block_prox/csrc/block_prox.cu",
          "replaces": "src/repro/kernels/block_prox/block_prox.py:56",
-         "launches": total("block_prox"), "max_abs_err": k2_err,
+         "launches": total("block_prox"),
+         "max_abs_err": max(k2_err, lm_holds["block_prox"]),
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_terms[k2_by] * 1e3, "bound_by": k2_by,
          "library_ms": k2_lib_ms},
         {"name": "histogram", "route": "cuda",
          "source": "src/repro_torch/kernels/histogram/csrc/histogram.cu",
          "replaces": "src/repro/kernels/histogram/histogram.py:110",
-         "launches": total("histogram"), "max_abs_err": k3_err,
+         "launches": total("histogram"),
+         "max_abs_err": max(k3_err, lm_holds["histogram"]),
          "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_terms[k3_by] * 1e3, "bound_by": k3_by,
          "library_ms": k3_lib_ms},
@@ -2020,9 +2462,10 @@ def main() -> int:
           f"{k4_alt_ms:.3f} ms a call, {k4_alt_dev:.3f} ms on the device, "
           f"same bits)")
     print("launches (main path + GBT path + applications path + serving "
-          "path + out-of-core path): " + ", ".join(
+          "path + out-of-core path + LM proximity head): " + ", ".join(
               f"{k} {launches[k]} + {gbt_launches[k]} + {app_launches[k]} "
-              f"+ {serve_launches[k]} + {ooc_launches[k]}" for k in wrappers))
+              f"+ {serve_launches[k]} + {ooc_launches[k]} + "
+              f"{lm_launches[k]}" for k in wrappers))
     print(f"wall: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,4 +1,4 @@
-"""Proximity serving over the port's engines.
+"""Serving: proximity serving over the port's engines, and LM serving.
 
 - :mod:`.proximity`   — ``ProximityServer`` (slot-batched serving of
   ``predict`` / ``topk`` / ``outlier`` / ``propagate`` / ``embed`` requests,
@@ -7,7 +7,10 @@
   spill and an async mode)
 - :mod:`.reliability` — fault injection, retry with backoff, circuit
   breakers and result validation for the servers' engine calls
+- :mod:`.engine`      — ``ServingEngine`` (continuous batching of LM
+  ``Request``s over a pool of decode lanes)
 """
+from .engine import Request, ServingEngine
 from .proximity import (KINDS, ProximityServer, ProxRequest, Tier,
                         TieredProximityServer, TieredRequest)
 from .reliability import (CircuitBreaker, CorruptedResult, FaultInjector,
@@ -16,4 +19,4 @@ from .reliability import (CircuitBreaker, CorruptedResult, FaultInjector,
 __all__ = ["KINDS", "ProxRequest", "ProximityServer", "Tier",
            "TieredRequest", "TieredProximityServer", "CircuitBreaker",
            "CorruptedResult", "FaultInjector", "InjectedFault",
-           "RetryPolicy", "validate_finite"]
+           "RetryPolicy", "validate_finite", "Request", "ServingEngine"]

@@ -968,3 +968,124 @@ def test_snapshot_round_trip_on_the_card(dev, tmp_path):
     i1, v1 = gpu.topk(k=7, X=Xq)
     i2, v2 = back.topk(k=7, X=Xq)
     assert torch.equal(i1, i2) and torch.equal(v1, v2)
+
+
+# ----------------------------------------------------------- LM serving ---
+LM_ARCHS = ("granite_34b", "minicpm_2b", "granite_8b", "command_r_35b",
+            "mamba2_2p7b", "qwen3_moe_235b_a22b", "granite_moe_3b_a800m",
+            "musicgen_large", "hymba_1p5b")       # vlm: forward only
+
+
+def _lm_cfg(arch):
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch).reduced()
+    if cfg.family == "moe":      # drop-free: teacher-forced = incremental
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    return cfg
+
+
+@pytest.fixture
+def lm_f32(monkeypatch):
+    """The port's LM computing in float32, TF32 off."""
+    from repro_torch.models import lm
+    monkeypatch.setattr(lm, "COMPUTE_DTYPE", torch.float32)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_decode_matches_forward_on_the_card(dev, arch):
+    """The reference's own criterion (bf16): greedy decode logits agree
+    with the teacher-forced forward's argmax at > 90% of positions."""
+    from repro_torch.models import lm
+    cfg = _lm_cfg(arch)
+    params = lm.init_params(cfg, 0, device=dev)
+    B, S = 2, 12
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, (B, S))
+    full, _ = lm.forward(params, cfg, tokens, attn_chunk=4)
+    cache = lm.init_cache(cfg, B, 32, dtype=torch.float32, device=dev)
+    outs = []
+    for pos in range(S):
+        lg, cache = lm.decode_step(params, cfg, tokens[:, pos:pos + 1],
+                                   cache, pos)
+        outs.append(lg[:, 0])
+    dec = torch.stack(outs, 1)
+    assert torch.isfinite(dec.float()).all()
+    assert (full.argmax(-1) == dec.argmax(-1)).float().mean() > 0.9
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS + ("paligemma_3b",))
+def test_lm_on_the_card_matches_the_cpu_in_float32(dev, arch, lm_f32):
+    """Float32 compute: forward, decode logits and caches on the card
+    within 1e-4 of the port's CPU path on the same weights."""
+    import copy
+    from repro_torch.models import lm
+    cfg = _lm_cfg(arch)
+    params = lm.init_params(cfg, 1, device=dev)
+    host = copy.deepcopy(params).to("cpu")
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, cfg.vocab, (2, 12))
+    img = None
+    if cfg.family == "vlm":
+        img = torch.from_numpy(rng.normal(
+            size=(2, cfg.prefix_len, cfg.d_model)).astype(np.float32))
+    kw = dict(attn_chunk=4)
+    a, aux_a = lm.forward(params, cfg, tokens, image_embed=img, **kw)
+    b, aux_b = lm.forward(host, cfg, tokens, image_embed=img, **kw)
+    torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(aux_a.cpu(), aux_b, atol=1e-4, rtol=1e-4)
+    if cfg.family == "vlm":
+        return
+    ca = lm.init_cache(cfg, 2, 16, dtype=torch.float32, device=dev)
+    cb = lm.init_cache(cfg, 2, 16, dtype=torch.float32, device="cpu")
+    for pos in range(12):
+        la, ca = lm.decode_step(params, cfg, tokens[:, pos:pos + 1], ca, pos)
+        lb, cb = lm.decode_step(host, cfg, tokens[:, pos:pos + 1], cb, pos)
+        torch.testing.assert_close(la.cpu(), lb, atol=1e-4, rtol=1e-4)
+    for k in cb:
+        torch.testing.assert_close(ca[k].cpu(), cb[k], atol=1e-4, rtol=1e-4)
+
+
+def test_lm_engine_per_slot_decode_on_the_card(dev, lm_f32):
+    """The engine's lanes at different positions (5 requests of 3-9 prompt
+    tokens through 2 slots) give each request's single-request greedy
+    tokens, on the card."""
+    from repro_torch.models import lm
+    from repro_torch.serve import Request, ServingEngine
+    cfg = _lm_cfg("hymba_1p5b")            # SWA ring buffers + globals
+    params = lm.init_params(cfg, 2, device=dev)
+    rng = np.random.default_rng(2)
+    eng = ServingEngine(cfg, params, n_slots=2, max_seq=32)
+    for i, n in enumerate((6, 3, 9, 4, 7)):
+        eng.submit(Request(uid=i, prompt=rng.integers(0, cfg.vocab, n)
+                           .astype(np.int32), max_new_tokens=12))
+    done = eng.run_until_drained()
+    assert len(done) == 5
+    for r in done:
+        cache = lm.init_cache(cfg, 1, 32, device=dev)
+        seq = list(r.prompt)
+        for pos in range(len(r.prompt) + len(r.generated) - 1):
+            lg, cache = lm.decode_step(params, cfg,
+                                       np.array([[seq[pos]]], np.int32),
+                                       cache, pos)
+            if pos >= len(r.prompt) - 1:
+                seq.append(int(lg[0, -1].argmax()))
+        assert seq[len(r.prompt):] == r.generated, r.uid
+
+
+def test_moe_combine_is_deterministic_on_the_card(dev):
+    """Each token's expert contributions are summed in a fixed order (no
+    atomics): two runs give the same bits, at granite-moe's widths."""
+    from repro_torch.models.layers import Initializer
+    from repro_torch.models.moe import init_moe, moe_forward
+    ini = Initializer(torch.Generator(device=dev).manual_seed(3), dev)
+    p = init_moe(ini, 1536, 40, 512)
+    x = torch.randn(4, 512, 1536, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(4)
+                    ).to(torch.bfloat16)
+    a, aux_a = moe_forward(p, x, n_experts=40, top_k=8)
+    b, aux_b = moe_forward(p, x, n_experts=40, top_k=8)
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    assert torch.equal(aux_a, aux_b)
+    assert torch.isfinite(a.float()).all() and a.abs().max() > 0

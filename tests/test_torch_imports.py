@@ -9,7 +9,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# chip_smoke.py and the bf16 contract it shares with the LM tests
+FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                     ROOT / "tests" / "_lm_contract.py"]
 
 
 def _module_names():
@@ -36,8 +38,24 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
 
 
 # the application layer, the observability, snapshot and serving layers
-# over it, the out-of-core modules and the example twins
-SLICE_MODULES = (
+# over it, the out-of-core modules, the LM serving path and the example twins
+LM_MODULES = (
+    "repro_torch.configs", "repro_torch.configs.base",
+    "repro_torch.configs.command_r_35b", "repro_torch.configs.granite_34b",
+    "repro_torch.configs.granite_8b",
+    "repro_torch.configs.granite_moe_3b_a800m",
+    "repro_torch.configs.hymba_1p5b", "repro_torch.configs.mamba2_2p7b",
+    "repro_torch.configs.minicpm_2b", "repro_torch.configs.musicgen_large",
+    "repro_torch.configs.paligemma_3b",
+    "repro_torch.configs.qwen3_moe_235b_a22b",
+    "repro_torch.models", "repro_torch.models.layers",
+    "repro_torch.models.attention", "repro_torch.models.ssm",
+    "repro_torch.models.moe", "repro_torch.models.lm",
+    "repro_torch.models.convert", "repro_torch.data.tokens",
+    "repro_torch.train", "repro_torch.train.steps", "repro_torch.launch",
+    "repro_torch.launch.serve", "repro_torch.serve.engine",
+    "repro_torch.serve_lm", "repro_torch.proximity_head_lm")
+SLICE_MODULES = LM_MODULES + (
     "repro_torch.applications", "repro_torch.applications.embed",
     "repro_torch.applications.imputation",
     "repro_torch.applications.outliers",
@@ -57,9 +75,17 @@ SLICE_MODULES = (
 @pytest.mark.parametrize("module", SLICE_MODULES)
 def test_every_application_module_is_covered(module):
     """The import check above walks the package; the application, obs,
-    snapshot, serving and out-of-core modules and the twins are among what
-    it imports."""
+    snapshot, serving, out-of-core and LM modules and the twins are among
+    what it imports."""
     assert module in _module_names()
+
+
+@pytest.mark.parametrize("module", LM_MODULES)
+def test_every_lm_source_is_scanned(module):
+    """The source scan below reads each LM module's file."""
+    rel = module.replace(".", "/")
+    assert (ROOT / "src" / f"{rel}.py") in FILES or \
+        (ROOT / "src" / rel / "__init__.py") in FILES
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
