@@ -66,7 +66,8 @@
    then holds every answer against a direct call on the engine of the
    tier that gave it, and times K1 and K2 at a tick's 64 rows;
 9. drives the out-of-core row of ``benchmarks/bench_scaling.py
-   --out-of-core`` (its steps copied here): 1,000,000 x 20
+   --out-of-core`` (its steps copied here) at 524,288 of its 1,000,000
+   rows (the same trees and widths): 524,288 x 20
    ``gaussian_classes`` (5 classes, sep 0.8) generated into a memmap, RF
    ``gap`` with 15 trees, ``max_depth`` 32, ``min_samples_leaf`` 3, a
    scratch directory and a 512 MiB ``memory_budget_bytes``, counted and
@@ -90,15 +91,29 @@
    (past the 1,024 window) held against the forward, timed and profiled;
    (c) its widths at depth 2 against the CPU path; (d) the
    continuous-batching ``ServingEngine`` at full width (4 slots, 8 seeded
-   requests), every request against its lane of one batched teacher-forced
-   decode; (e) the ``proximity_head_lm`` twin, counted: forests fitted on
-   the card LM's features on the card and on the host (trees equal, ops
-   within 1e-8), then K3, K1 and K2 at the twin's shapes against their
-   plain versions.
+   requests), timed, then the same requests through the engine at depth 2
+   on the card against the CPU's engine (first-divergence rule); (e) the
+   ``proximity_head_lm`` twin, counted: forests fitted on the card LM's
+   features on the card and on the host (trees equal, ops within 1e-8),
+   then K3, K1 and K2 at the twin's shapes against their plain versions;
+11. drives LM training (``train/steps.py``, ``optimizer.py``,
+   ``checkpoint.py``, ``launch/train.py``, ``distributed/compression.py``),
+   counted (no kernel of the port runs there): (a) every arch at
+   ``reduced()`` widths, the card's float32 train step against the CPU's
+   (loss, grad_norm and every leaf's gradient within 1e-4), then five bf16
+   steps on one batch lowering the loss; (b) hymba_1p5b at its published
+   width and depth, B=2 x 1,280, five steps with remat, timed, its peak
+   memory and its FLOP bound, one warm step profiled; its widths at depth 2
+   against the CPU in bf16; (c) the ``train_lm_e2e`` twin's ``train_loop``
+   in a scratch directory, 30 steps uninterrupted and then failing at
+   step 20 and resumed (losses within 1e-4 of the uninterrupted run's);
+   (d) int8 gradient compression on the card against the CPU, bit for
+   bit.
 
 Last it prints one ``{"kernels": [...]}`` line (launches on the main, GBT,
-applications, serving, out-of-core and LM proximity-head paths, errors, kernel / plain /
-library times and the least time the card could take), the card's name
+applications, serving, out-of-core, LM proximity-head and LM training
+paths, errors, kernel / plain / library times and the least time the card
+could take), the card's name
 and power limit, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -108,6 +123,7 @@ of it the host computations the card's results are held against, the
 out-of-core row and the LM decode (host-bound).
 """
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -141,7 +157,7 @@ SERVE_MIX = (0.40, 0.25, 0.15, 0.10, 0.10)  # predict/topk/outlier/prop./embed
 MARGIN_TIE = 1e-9        # propagation labels may differ below this margin
 ATOL_EMBED = 1e-6        # embedding coordinates, after aligning signs
 # phase 9: the out-of-core row of benchmarks/bench_scaling.py --out-of-core
-OOC_ROWS, OOC_D, OOC_CLASSES, OOC_SEP = 1_000_000, 20, 5, 0.8
+OOC_ROWS, OOC_D, OOC_CLASSES, OOC_SEP = 524_288, 20, 5, 0.8
 OOC_TREES, OOC_DEPTH, OOC_LEAF = 15, 32, 3
 OOC_BUDGET = 512 << 20   # the row's memory_budget_bytes
 CHECK_BUDGET = 32 << 20  # check (a): every budgeted branch taken at 50k
@@ -161,6 +177,18 @@ LM_SEG_LEN = 32
 LM_SLOTS, LM_MAX_SEQ, LM_REQS, LM_NEW = 4, 256, 8, 16
 LM_PROMPT = (16, 48)          # (d): prompt lengths, inclusive
 LM_PROFILE_STEPS = 4          # (b): decode steps under the profiler
+# phase 11: LM training (reduced archs; hymba_1p5b at its published width)
+TRAIN_S_REDUCED = 20          # (a): ragged for 8-wide attention chunks
+TRAIN_TOL = 1e-4              # (a): float32, card against the CPU
+TRAIN_B, TRAIN_S = 2, 1280    # (b): past the 1,024 window
+TRAIN_STEPS, TRAIN_LR, TRAIN_TOP_OPS = 5, 3e-4, 8
+# (b) at depth 2 in bf16, card against the CPU: loss and grad_norm
+# relative, each leaf's largest gap over its max|g| (the CPU's own bf16
+# against float32 gradients differ by up to 0.034 of a leaf's max there)
+TRAIN_BF16_LOSS, TRAIN_BF16_NORM, TRAIN_BF16_LEAF = 1e-3, 1e-2, 0.1
+# (c): the twin's model and batch, 30 of its 300 steps (a step takes
+# ~0.5 s on the card, host-bound, and a checkpoint ~1 GB)
+E2E_STEPS, E2E_SAVE, E2E_FAIL = 30, 15, 20
 TREE_FIELDS = ("feature", "threshold", "left", "right", "leaf_id", "value",
                "n_node_samples")
 
@@ -170,6 +198,7 @@ TREE_FIELDS = ("feature", "threshold", "left", "right", "leaf_id", "value",
 HBM_BYTES_S = 3.35e12
 FP64_FMA_S = 33.5e12 / 2
 FP32_S = 67e12           # FP32 outside the tensor cores (NVIDIA data sheet)
+BF16_S = 989e12          # bf16 dense on the tensor cores (NVIDIA data sheet)
 
 
 def check(cond, msg):
@@ -686,6 +715,7 @@ def phase10(torch, dev, wrappers):
     import copy
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from _lm_contract import (BF16_REL, ROUTER_TIE, bf16_contract,
+                              engine_token_logits, first_divergence_ok,
                               logit_stats, np32, router_gaps)
     from repro_torch import proximity_head_lm as twin
     from repro_torch.configs.base import ALL_ARCHS, get_config
@@ -697,7 +727,9 @@ def phase10(torch, dev, wrappers):
     from repro_torch.kernels.leaf_route.ops import route
     from repro_torch.kernels.leaf_route.ref import route_ref
     from repro_torch.models import lm
+    from repro_torch.models.lm import decode_step
     from repro_torch.serve import Request, ServingEngine
+    from repro_torch.serve import engine as engine_mod
     from repro_torch.train.steps import make_prefill_step
     t10 = time.perf_counter()
     cpu = torch.device("cpu")
@@ -717,11 +749,12 @@ def phase10(torch, dev, wrappers):
             img = torch.from_numpy(rng.normal(
                 size=(2, cfg.prefix_len, cfg.d_model)).astype(np.float32))
         gaps_f, gaps_d = [], []
-        fwd_d, _ = lm.forward(params, cfg, tokens, image_embed=img,
-                              attn_chunk=4)
-        with router_gaps(gaps_f):
-            fwd_h, _ = lm.forward(host, cfg, tokens, image_embed=img,
+        with torch.inference_mode():
+            fwd_d, _ = lm.forward(params, cfg, tokens, image_embed=img,
                                   attn_chunk=4)
+            with router_gaps(gaps_f):
+                fwd_h, _ = lm.forward(host, cfg, tokens, image_embed=img,
+                                      attn_chunk=4)
         skip = (np.any([g.reshape(2, -1) < ROUTER_TIE for g in gaps_f],
                        axis=0)[:, -12:] if gaps_f else None)
         gap_f, dec_f = bf16_contract(fwd_d, fwd_h, skip, f"{arch} forward")
@@ -758,6 +791,9 @@ def phase10(torch, dev, wrappers):
     # (b) hymba_1p5b at full width and depth
     tb = time.perf_counter()
     cfg = get_config(LM_ARCH)
+    # earlier phases' unreachable cycles freed first, so that a collection
+    # during the phase does not hide the phase's own peak
+    gc.collect()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()     # what earlier phases still hold
     t = time.perf_counter()
@@ -883,8 +919,9 @@ def phase10(torch, dev, wrappers):
     p2 = lm.init_params(cfg2, 2, device=dev)
     h2 = copy.deepcopy(p2).to(cpu)
     t = time.perf_counter()
-    f_d, _ = lm.forward(p2, cfg2, tok_d)
-    f_h, _ = lm.forward(h2, cfg2, tokens)
+    with torch.inference_mode():
+        f_d, _ = lm.forward(p2, cfg2, tok_d)
+        f_h, _ = lm.forward(h2, cfg2, tokens)
     gf, df = bf16_contract(f_d, f_h, what="depth-2 forward")
     # the card decodes all positions; the CPU path decodes each segment
     # from the card's cache at its start (the second crosses the window)
@@ -917,7 +954,7 @@ def phase10(torch, dev, wrappers):
           f"SWA), card vs CPU path, largest gap / max|.|: forward B={LM_B} "
           f"S={LM_S} {gf:.4f} ({df} decided); decode " + "; ".join(seg_rows)
           + f" ({time.perf_counter() - t:.1f} s)", flush=True)
-    del p2, h2, f_d, c_d
+    del f_d, c_d
 
     # (d) the continuous-batching engine at full width
     rng = np.random.default_rng(2)
@@ -940,39 +977,54 @@ def phase10(torch, dev, wrappers):
     st = eng.stats()
     check(st["requests"] == LM_REQS and st["tokens"] == LM_REQS * LM_NEW,
           f"engine stats {st}")
-    # every finished request teacher-forced through one batched decode from
-    # position 0, a lane each (lanes never mix); a lane past its end is fed
-    # its last token and read no more
-    fin = sorted(eng.finished, key=lambda r: r.uid)
-    seqs = [np.concatenate([r.prompt, np.asarray(r.generated, np.int32)])
-            for r in fin]
-    n_max = max(len(q) for q in seqs)
-    toks = np.stack([np.pad(q, (0, n_max - len(q)), mode="edge")
-                     for q in seqs])
-    lg_b, _ = lm_teacher_forced(
-        torch, lm, params, cfg, torch.from_numpy(toks).to(dev),
-        lm.init_cache(cfg, len(fin), LM_MAX_SEQ, device=dev), 0, n_max - 1)
-    n_dec = 0
-    for b, r in enumerate(fin):
-        P = len(r.prompt)
-        ref = np32(lg_b[b, P - 1:len(seqs[b]) - 1])
-        top2 = np.sort(ref, axis=-1)[..., -2:]
-        decided = top2[:, 1] - top2[:, 0] > BF16_REL * np.abs(ref).max(-1)
-        got = np.asarray(r.generated)
-        check((ref.argmax(-1) == got)[decided].all(),
-              f"request {r.uid}: engine tokens differ from its lane's "
-              f"decode at {np.flatnonzero(decided & (ref.argmax(-1) != got))}")
-        n_dec += int(decided.sum())
+    # the same requests through the engine at depth 2 on the card and on
+    # the CPU (the schedule of batched steps depends only on the prompt
+    # lengths and max_new_tokens, so it is the same on both): each
+    # request's tokens under the first-divergence rule, judged by the CPU
+    # engine's own logits (recorded through the engine's decode_step)
+    t = time.perf_counter()
+    runs = {}
+    for side, p in (("card", p2), ("cpu", h2)):
+        calls = []
+
+        def spy(*a, **kw):
+            lg, c = decode_step(*a, **kw)
+            calls.append((a[4].cpu().numpy().copy(), lg[:, -1].float().cpu()))
+            return lg, c
+        engine_mod.decode_step = spy
+        try:
+            e2 = ServingEngine(cfg2, p, n_slots=LM_SLOTS, max_seq=LM_MAX_SEQ)
+            for r in reqs:
+                e2.submit(Request(uid=r.uid, prompt=r.prompt,
+                                  max_new_tokens=LM_NEW))
+            e2.run_until_drained()
+        finally:
+            engine_mod.decode_step = decode_step
+        runs[side] = (e2, calls)
+    (e_d, _), (e_h, calls_h) = runs["card"], runs["cpu"]
+    got = {r.uid: r for r in e_d.finished}
+    n_same = 0
+    for r in e_h.finished:
+        check(len(got[r.uid].generated) == len(r.generated) == LM_NEW,
+              f"request {r.uid}: {len(got[r.uid].generated)} tokens")
+        check(first_divergence_ok(got[r.uid].generated, r.generated,
+                                  engine_token_logits(calls_h, e_h.finished,
+                                                      r)),
+              f"request {r.uid}: the card engine's tokens part from the CPU "
+              f"engine's at a decided position")
+        n_same += got[r.uid].generated == r.generated
     print(f"phase 10 (d) ServingEngine {LM_ARCH} full width, {LM_SLOTS} "
           f"slots, max_seq {LM_MAX_SEQ}, {LM_REQS} requests of "
           f"{[len(r.prompt) for r in reqs]} prompt tokens + {LM_NEW} new: "
           f"{ticks} ticks in {eng_s:.3f} s ({eng_s * 1e3 / ticks:.1f} ms a "
           f"tick, admissions included), {st['tokens'] / eng_s:.1f} generated "
           f"tokens/s, mean latency {st['mean_latency_s']:.3f} s, mean TTFT "
-          f"{st['mean_ttft_s']:.3f} s; every request equals its lane of a "
-          f"{len(fin)}-lane teacher-forced decode ({n_max - 1} steps) at its "
-          f"{n_dec} decided positions ((d) "
+          f"{st['mean_ttft_s']:.3f} s; at depth 2 the card engine against "
+          f"the CPU engine (same weights, bf16): {n_same} of {LM_REQS} "
+          f"requests equal throughout, the rest equal up to a near-tie of "
+          f"the CPU engine's logits ({time.perf_counter() - t:.1f} s; (d) "
           f"{time.perf_counter() - td:.1f} s)", flush=True)
+    del p2, h2, e_d, e_h, runs, calls_h
     del eng, params, cache
 
     # (e) the proximity-head twin: LM features once on the card, forests
@@ -1073,6 +1125,267 @@ def phase10(torch, dev, wrappers):
           flush=True)
     print(f"phase 10 wall: {time.perf_counter() - t10:.1f} s", flush=True)
     return lm_launches, holds
+
+
+def phase11(torch, dev):
+    """LM training on the card: (a) every reduced arch's train step against
+    the port's CPU train step in float32 compute, then five bf16 steps on
+    one batch lowering the loss; (b) hymba_1p5b at its published width and
+    depth, five steps on one batch with remat, timed, its peak memory and
+    its bound, one warm step profiled; its widths at depth 2 against the
+    CPU path in bf16; (c) the ``train_lm_e2e`` twin's ``train_loop`` in a
+    scratch directory, uninterrupted and then failing at a middle step and
+    resumed; (d) int8 gradient compression on the card against the CPU on
+    hymba's gradient leaves."""
+    import copy
+    from repro_torch import train_lm_e2e as e2e
+    from repro_torch.configs.base import ALL_ARCHS, get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.distributed.compression import (EFState, ef_compress,
+                                                     quantize_int8)
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import lm
+    from repro_torch.train.checkpoint import latest_step
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import (init_train_state, make_train_step,
+                                         value_and_grad)
+    t11 = time.perf_counter()
+    cpu = torch.device("cpu")
+
+    def on(batch, device):
+        return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+    def leaf_gaps(got, ref):
+        """Each leaf's largest |got - ref| as a share of its max|ref|."""
+        return [float((g.cpu() - r).abs().max()) / max(float(r.abs().max()),
+                                                       1e-30)
+                for g, r in zip(got, ref)]
+
+    # (a) every arch at reduced widths, float32 compute
+    rows, f32 = [], lm.COMPUTE_DTYPE
+    for arch in ALL_ARCHS:
+        cfg = get_config(arch).reduced()
+        params = lm.init_params(cfg, 0, device=dev)
+        host = copy.deepcopy(params).to(cpu)
+        rng = np.random.default_rng(0)
+        tokens = rng.integers(0, cfg.vocab, (2, TRAIN_S_REDUCED))
+        batch = {"tokens": tokens, "labels": np.roll(tokens, -1, axis=1)}
+        if cfg.family == "vlm":
+            batch["image_embed"] = rng.normal(
+                size=(2, cfg.prefix_len, cfg.d_model)).astype(np.float32)
+        opt = AdamWConfig(lr=1e-3, warmup_steps=1, schedule="const")
+        lm.COMPUTE_DTYPE = torch.float32
+        try:
+            ld, gd = value_and_grad(cfg, params, on(batch, dev), attn_chunk=8)
+            lh, gh = value_and_grad(cfg, host, on(batch, cpu), attn_chunk=8)
+            mets = []
+            for p in (params, host):
+                step = make_train_step(cfg, opt, attn_chunk=8)
+                _, m = step({"params": p, "opt": adamw_init(p)},
+                            on(batch, p.device))
+                mets.append({k: float(v) for k, v in m.items()})
+        finally:
+            lm.COMPUTE_DTYPE = f32
+        e_loss = abs(float(ld) - float(lh)) / abs(float(lh))
+        e_step = abs(mets[0]["loss"] - mets[1]["loss"]) / abs(mets[1]["loss"])
+        e_norm = abs(mets[0]["grad_norm"] - mets[1]["grad_norm"]) \
+            / mets[1]["grad_norm"]
+        gaps = leaf_gaps(gd, gh)
+        check(all(torch.isfinite(g).all() for g in gd), f"{arch}: non-finite "
+              f"gradients on the card")
+        check(max(e_loss, e_step, e_norm) <= TRAIN_TOL and
+              max(gaps) <= TRAIN_TOL, f"{arch} float32 train step, card vs "
+              f"CPU: loss {e_loss:.2e} / {e_step:.2e}, grad_norm "
+              f"{e_norm:.2e}, worst leaf {max(gaps):.2e}")
+        # bf16: five steps on one batch (labels the tokens themselves, the
+        # reference's test_train_step_reduces_loss) lower the loss
+        state = init_train_state(cfg, 1, device=dev)
+        step = make_train_step(cfg, AdamWConfig(
+            lr=1e-2, warmup_steps=1, total_steps=100, schedule="const"),
+            attn_chunk=8)
+        mem = on(dict(batch, labels=tokens), dev)
+        losses = []
+        for _ in range(5):
+            state, m = step(state, mem)
+            losses.append(float(m["loss"]))
+        check(np.isfinite(losses).all() and losses[-1] < losses[0],
+              f"{arch}: bf16 losses {losses}")
+        rows.append(f"{arch} loss {max(e_loss, e_step):.1e} grad_norm "
+                    f"{e_norm:.1e} leaf {max(gaps):.1e}, bf16 "
+                    f"{losses[0]:.3f} -> {losses[-1]:.3f}")
+    print("phase 11 (a) reduced archs, float32 train step card vs CPU (loss "
+          "and grad_norm relative, worst leaf's gradient gap / its "
+          "max|g|), then 5 bf16 steps on one batch: " + "; ".join(rows)
+          + f" ({time.perf_counter() - t11:.1f} s)", flush=True)
+
+    # (b) hymba_1p5b at full width and depth: 5 steps on one batch
+    tb = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    torch.cuda.synchronize()
+    gc.collect()                             # as in phase 10 (b)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()     # what earlier phases still hold
+    state = init_train_state(cfg, 0, device=dev)
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    state_gb = 4 * n_params * 3 / 1e9        # params, m, v (float32)
+    pipe = TokenPipeline(vocab=cfg.vocab, global_batch=TRAIN_B,
+                         seq_len=TRAIN_S)
+    batch = on(pipe.batch_at(0), dev)
+    step = make_train_step(cfg, AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=1, schedule="const"), remat=True)
+    losses, secs = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))      # reads the device: the step's end
+        secs.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated() - base
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"{LM_ARCH} full-size losses {losses}")
+    warm_ms = float(np.mean(secs[1:])) * 1e3
+    tokens = TRAIN_B * TRAIN_S
+    flops = 8 * n_params * tokens            # 6NT + the remat forward's 2NT
+    bound_ms = flops / BF16_S * 1e3
+    # one warm step under the profiler: device time by aten op (the
+    # kernels each op launched itself) and the idle share
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):      # the profiler can lose a short window's events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+        dev_ms, n_k, by_op, by_kernel = 0.0, 0, {}, {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                dev_ms += us / 1e3
+                n_k += e.count
+                by_kernel[e.key] = (by_kernel.get(e.key, (0.0, 0))[0]
+                                    + us / 1e3, e.count)
+            elif us > 0:
+                by_op[e.key] = by_op.get(e.key, 0.0) + us / 1e3
+        if dev_ms > 0:
+            break
+    check(dev_ms > 0, "the profiler caught no device time in 3 windows")
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:TRAIN_TOP_OPS]
+    print(f"phase 11 (b) {LM_ARCH}: {n_params} parameters, B={TRAIN_B} x "
+          f"S={TRAIN_S}, remat, lr {TRAIN_LR}: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; cold {secs[0] * 1e3:.1f}"
+          f" ms, warm {warm_ms:.1f} ms a step (mean of {TRAIN_STEPS - 1}), "
+          f"{tokens / warm_ms * 1e3:.1f} tokens/s; peak device memory "
+          f"{peak / 2 ** 30:.3f} GiB above the phase's start (params, m and v "
+          f"{state_gb:.2f} GB float32, grads {state_gb / 3:.2f} GB); bound "
+          f"{bound_ms:.2f} ms (8 x N x T = {flops:.3e} FLOP at "
+          f"{BF16_S / 1e12:.0f} TFLOP/s bf16 dense), the step "
+          f"{warm_ms / bound_ms:.1f}x it", flush=True)
+    print(f"phase 11 (b) a warm step under the profiler: {n_k} device "
+          f"kernels and copies, {dev_ms:.2f} ms on the device, idle "
+          f"{1 - dev_ms / warm_ms:.3f} of an unprofiled step; device ms by "
+          f"aten op (its own kernels): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in top) + "; the longest kernels "
+          "(ms, launches): " + ", ".join(
+              f"{k[:60]} {v[0]:.2f} ({v[1]})" for k, v in sorted(
+                  by_kernel.items(), key=lambda kv: -kv[1][0])[:5]),
+          flush=True)
+    del state, batch, m, prof
+
+    # (b) its widths at depth 2 (layer 0 global, 1 SWA), B=1 x S=1,280:
+    # loss, grad_norm and every leaf's gradient, card against the CPU (bf16)
+    t = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, n_layers=2, global_layers=(0,))
+    p2 = lm.init_params(cfg2, 2, device=dev)
+    h2 = copy.deepcopy(p2).to(cpu)
+    b2 = {k: v[:1] for k, v in pipe.batch_at(1).items()}
+    ld, gd = value_and_grad(cfg2, p2, on(b2, dev))
+    lh, gh = value_and_grad(cfg2, h2, on(b2, cpu))
+    nd = float(torch.linalg.vector_norm(torch.stack(
+        torch._foreach_norm(gd))))
+    nh = float(torch.linalg.vector_norm(torch.stack(
+        torch._foreach_norm(gh))))
+    e_loss = abs(float(ld) - float(lh)) / abs(float(lh))
+    e_norm = abs(nd - nh) / nh
+    gaps = leaf_gaps(gd, gh)
+    names = [n for n, _ in p2.named_parameters()]
+    worst = int(np.argmax(gaps))
+    check(e_loss <= TRAIN_BF16_LOSS and e_norm <= TRAIN_BF16_NORM
+          and max(gaps) <= TRAIN_BF16_LEAF,
+          f"depth-2 bf16 gradients, card vs CPU: loss {e_loss:.2e}, "
+          f"grad_norm {e_norm:.2e}, {names[worst]} {gaps[worst]:.3f}")
+    print(f"phase 11 (b) {LM_ARCH} widths at depth 2, B=1 x S={TRAIN_S}, "
+          f"bf16, card vs CPU: loss {float(ld):.5f} / {float(lh):.5f} "
+          f"(relative {e_loss:.2e}, limit {TRAIN_BF16_LOSS}), grad_norm "
+          f"{nd:.5f} / {nh:.5f} ({e_norm:.2e}, limit {TRAIN_BF16_NORM}), "
+          f"largest leaf gap / its max|g| {gaps[worst]:.4f} at "
+          f"{names[worst]} (limit {TRAIN_BF16_LEAF}), median "
+          f"{float(np.median(gaps)):.4f} ({time.perf_counter() - t:.1f} s; "
+          f"(b) {time.perf_counter() - tb:.1f} s)", flush=True)
+
+    del p2, h2, gh
+
+    # (c) the e2e twin's train_loop: uninterrupted, then failing at a middle
+    # step and resumed from its checkpoint (the reference's resume-exact)
+    t = time.perf_counter()
+    cfg_e = e2e.e2e_config()
+    kw = dict(e2e.run_kw(), device=str(dev), log_every=10 ** 9)
+    kw["steps"] = E2E_STEPS
+    kw["save_every"] = E2E_SAVE
+    with tempfile.TemporaryDirectory(prefix="e2e_") as scratch:
+        t0 = time.perf_counter()
+        _, full = train_loop(cfg_e, ckpt_dir=os.path.join(scratch, "a"), **kw)
+        full_s = time.perf_counter() - t0
+        d_b = os.path.join(scratch, "b")
+        try:
+            train_loop(cfg_e, ckpt_dir=d_b, fail_at=E2E_FAIL, **kw)
+            check(False, "the failing run did not fail")
+        except RuntimeError as err:
+            check("simulated failure" in str(err), f"failing run: {err}")
+        resumed_at = latest_step(d_b)
+        _, resumed = train_loop(cfg_e, ckpt_dir=d_b, **kw)
+    a = np.array([h["loss"] for h in full[resumed_at:]])
+    b = np.array([h["loss"] for h in resumed])
+    check(len(a) == len(b) == E2E_STEPS - resumed_at,
+          f"resumed {len(b)} steps from {resumed_at}")
+    e_res = float(np.max(np.abs(a - b) / np.abs(a)))
+    check(e_res <= 1e-4, f"resumed losses differ by {e_res:.2e} (rtol 1e-4)")
+    first, last, ok = e2e.summary(full)
+    check(ok, f"e2e PASS rule: {first:.3f} -> {last:.3f}")
+    print(f"phase 11 (c) train_lm_e2e's train_loop on the card "
+          f"({cfg_e.param_count() / 1e6:.1f}M parameters, batch "
+          f"{kw['global_batch']} x {kw['seq_len']}, {E2E_STEPS} steps, "
+          f"checkpoints every {E2E_SAVE}): loss {first:.3f} -> {last:.3f} "
+          f"(PASS: last < first - 0.3), {full_s * 1e3 / E2E_STEPS:.1f} ms a "
+          f"step with its saves; failed at step {E2E_FAIL}, resumed from "
+          f"{resumed_at}: the {len(b)} resumed losses within {e_res:.1e} of "
+          f"the uninterrupted run's ({time.perf_counter() - t:.1f} s)",
+          flush=True)
+
+    # (d) int8 compression of (b)'s depth-2 gradients: the card's codes,
+    # scales and error-feedback residuals against the CPU's, bit for bit
+    t = time.perf_counter()
+    n_el = 0
+    for i in range(len(gd)):
+        g_d, g_h = gd[i], gd[i].cpu()
+        qd, sd = quantize_int8(g_d)
+        qh, sh = quantize_int8(g_h)
+        r = torch.full_like(g_h, 1e-4)
+        (od,), efd = ef_compress([g_d], EFState([r.to(dev)]))
+        (oh,), efh = ef_compress([g_h], EFState([r]))
+        check(torch.equal(qd.cpu(), qh) and same_bits(sd, sh)
+              and same_bits(od, oh) and same_bits(efd.residual[0],
+                                                  efh.residual[0]),
+              f"int8 compression of {names[i]} differs on the card")
+        n_el += g_h.numel()
+    big = max(range(len(gd)), key=lambda i: gd[i].numel())
+    print(f"phase 11 (d) int8 compression of the {len(gd)} depth-2 gradient "
+          f"leaves ({n_el} values, the largest {names[big]} "
+          f"{tuple(gd[big].shape)}): codes, scales, error-feedback outputs and residuals "
+          f"on the card equal the CPU's bit for bit "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
+    del gd
+    print(f"phase 11 wall: {time.perf_counter() - t11:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -2359,6 +2672,14 @@ def main() -> int:
     # ---- phase 10: the LM serving path on the card ----
     lm_launches, lm_holds = phase10(torch, dev, wrappers)
 
+    # ---- phase 11: LM training on the card (no kernel of the port) ----
+    reset_counts()
+    phase11(torch, dev)
+    torch.cuda.synchronize()
+    train_launches = read_counts()
+    print(f"phase 11 launches K1/K2/K3/K4: "
+          f"{'/'.join(str(v) for v in train_launches.values())}", flush=True)
+
     # ---- bounds, from this run's shapes and data ----
     # K1 reads X once, each real node's 16-byte record once (not the
     # padding up to M) and writes the (n, T) int32 leaves
@@ -2400,7 +2721,8 @@ def main() -> int:
 
     def total(name):
         return launches[name] + gbt_launches[name] + app_launches[name] \
-            + serve_launches[name] + ooc_launches[name] + lm_launches[name]
+            + serve_launches[name] + ooc_launches[name] + lm_launches[name] \
+            + train_launches[name]
     kernels = [
         {"name": "leaf_route", "route": "cuda",
          "source": "src/repro_torch/kernels/leaf_route/csrc/leaf_route.cu",
@@ -2462,10 +2784,11 @@ def main() -> int:
           f"{k4_alt_ms:.3f} ms a call, {k4_alt_dev:.3f} ms on the device, "
           f"same bits)")
     print("launches (main path + GBT path + applications path + serving "
-          "path + out-of-core path + LM proximity head): " + ", ".join(
+          "path + out-of-core path + LM proximity head + LM training): "
+          + ", ".join(
               f"{k} {launches[k]} + {gbt_launches[k]} + {app_launches[k]} "
               f"+ {serve_launches[k]} + {ooc_launches[k]} + "
-              f"{lm_launches[k]}" for k in wrappers))
+              f"{lm_launches[k]} + {train_launches[k]}" for k in wrappers))
     print(f"wall: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -23,6 +23,7 @@ from ..train.steps import make_decode_step
 __all__ = ["generate", "main"]
 
 
+@torch.inference_mode()
 def generate(cfg, params, prompts: np.ndarray, gen_len: int,
              max_seq: int = 0):
     """prompts: (B, P) int32. Greedy decode ``gen_len`` tokens on the

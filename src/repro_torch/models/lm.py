@@ -2,18 +2,24 @@
 
 One parameter layout + the reference's entry points:
 
-  - ``forward(params, cfg, tokens, ...)``       — logits for prefill
+  - ``forward(params, cfg, tokens, ...)``       — logits for train/prefill
+  - ``loss_fn(params, cfg, tokens, labels)``    — the training loss
   - ``decode_step(params, cfg, token, cache, pos)`` — one-token serve step
   - ``init_params(cfg, seed)`` / ``init_cache(cfg, batch, seq_len)``
-  - ``loss_fn`` (forward only: the training slice adds the backward pass)
 
 ``params`` is an :class:`LM` module with one :class:`Block` per layer in an
 ``nn.ModuleList``; each block holds the JAX package's leaves under the same
 names (``blk.attn["wq"]``, ``blk.ssm["in_proj"]``, ``blk.mlp["w_gate"]``,
-...), and :mod:`.convert` carries the reference's stacked pytree across.
-Layers run in a Python loop with no rematerialization (inference).  Caches
-keep the reference's stacked layout (a leading layer axis) and are updated
-in place; ``decode_step`` returns them all the same.
+...), and :mod:`.convert` carries the reference's stacked pytree across in
+both directions.  Every leaf is a float32 ``nn.Parameter`` that requires
+grad, so ``forward`` builds an autograd graph unless the caller runs it
+under ``torch.inference_mode()`` (every inference caller of the port does)
+or ``torch.no_grad()``.  Layers run in a Python loop; with grad enabled and
+``remat`` each block runs under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint(layer)``), so only the residual stream between blocks is
+kept for the backward pass.  ``decode_step`` always runs without grad.
+Caches keep the reference's stacked layout (a leading layer axis) and are
+updated in place; ``decode_step`` returns them all the same.
 
 VLM (paligemma): ``image_embed`` (B, P, D) precomputed patch embeddings (stub
 frontend) are prepended to the token embeddings and the mask is prefix-LM.
@@ -22,14 +28,16 @@ likewise a stub.
 
 The reference shards and pads the vocabulary, heads and experts when
 ``tp > 1`` (``shard_hint``, ``tp_size_of``, ``get_opt``); on one device
-those are no-ops, and they come back with the multi-GPU slice.
+those are no-ops (``keep_padded_vocab`` among them), and they come back
+with the multi-GPU slice.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
@@ -38,13 +46,12 @@ from .layers import COMPUTE_DTYPE, Initializer, rms_norm, silu
 from .moe import init_moe, moe_forward
 from .ssm import init_ssm, ssm_decode, ssm_forward
 
-__all__ = ["LM", "Block", "init_params", "forward", "decode_step",
-           "init_cache", "loss_fn"]
+__all__ = ["LM", "Block", "init_params", "map_params", "forward",
+           "decode_step", "init_cache", "loss_fn"]
 
 
 def _pdict(leaves: Dict[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in leaves.items()})
+    return nn.ParameterDict({k: nn.Parameter(v) for k, v in leaves.items()})
 
 
 class Block(nn.Module):
@@ -57,7 +64,7 @@ class Block(nn.Module):
             if isinstance(v, dict):
                 setattr(self, name, _pdict(v))
             else:
-                setattr(self, name, nn.Parameter(v, requires_grad=False))
+                setattr(self, name, nn.Parameter(v))
 
 
 class LM(nn.Module):
@@ -67,11 +74,10 @@ class LM(nn.Module):
     def __init__(self, embed: torch.Tensor, blocks, final_norm: torch.Tensor,
                  lm_head: Optional[torch.Tensor] = None):
         super().__init__()
-        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.embed = nn.Parameter(embed)
         self.layers = nn.ModuleList(blocks)
-        self.final_norm = nn.Parameter(final_norm, requires_grad=False)
-        self.lm_head = None if lm_head is None else \
-            nn.Parameter(lm_head, requires_grad=False)
+        self.final_norm = nn.Parameter(final_norm)
+        self.lm_head = None if lm_head is None else nn.Parameter(lm_head)
 
     @property
     def device(self) -> torch.device:
@@ -123,8 +129,26 @@ def init_params(cfg: ArchConfig, seed: Union[int, torch.Generator] = 0,
     return LM(embed, blocks, final_norm, head)
 
 
+def map_params(params: LM, fn: Callable[[str, torch.Tensor], torch.Tensor]
+               ) -> LM:
+    """A new :class:`LM` of ``params``' layout whose leaf under each
+    parameter name (``layers.3.attn.wq``) is ``fn(name, leaf)``: the
+    optimizer's moments, a restored checkpoint."""
+    def block(l, bp):
+        leaves = {n: fn(f"layers.{l}.{n}", v)
+                  for n, v in bp.named_parameters(recurse=False)}
+        for n, sub in bp.named_children():
+            leaves[n] = {k: fn(f"layers.{l}.{n}.{k}", v)
+                         for k, v in sub.items()}
+        return Block(leaves)
+    head = None if params.lm_head is None else fn("lm_head", params.lm_head)
+    return LM(fn("embed", params.embed),
+              [block(l, bp) for l, bp in enumerate(params.layers)],
+              fn("final_norm", params.final_norm), head)
+
+
 # --------------------------------------------------------------------------
-# forward (prefill)
+# forward (train / prefill)
 # --------------------------------------------------------------------------
 def _mlp(mp, h2, cd):
     g = silu(h2 @ mp["w_gate"].to(cd))
@@ -182,9 +206,13 @@ def _embed(params: LM, cfg: ArchConfig, tokens, cd):
 
 def forward(params: LM, cfg: ArchConfig, tokens,
             image_embed: Optional[torch.Tensor] = None,
-            block_causal: bool = False, attn_chunk: int = 512
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens: (B, S) int -> (logits (B, S, V), aux_loss)."""
+            block_causal: bool = False, attn_chunk: int = 512,
+            remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S) int -> (logits (B, S, V), aux_loss).
+
+    Differentiable in ``params`` when grad mode is on; ``remat`` then
+    recomputes each block in the backward pass instead of keeping its
+    activations (no effect without grad)."""
     cd = COMPUTE_DTYPE
     x = _embed(params, cfg, tokens, cd)
     if cfg.family == "vlm":
@@ -193,15 +221,18 @@ def forward(params: LM, cfg: ArchConfig, tokens,
         image_embed = torch.as_tensor(image_embed, device=x.device)
         x = torch.cat([image_embed.to(cd), x], dim=1)
     glob = set(cfg.global_layers)
+    recompute = remat and torch.is_grad_enabled()
     auxs = []
-    with torch.no_grad():
-        for l, bp in enumerate(params.layers):
-            x, aux = _block_forward(cfg, bp, x, l in glob,
-                                    block_causal=block_causal,
-                                    chunk=attn_chunk)
-            auxs.append(aux)
-        x = rms_norm(x, params.final_norm, cfg.norm_eps)
-        logits = x @ params.head().to(cd)
+    for l, bp in enumerate(params.layers):
+        kw = dict(block_causal=block_causal, chunk=attn_chunk)
+        if recompute:
+            x, aux = checkpoint(_block_forward, cfg, bp, x, l in glob,
+                                use_reentrant=False, **kw)
+        else:
+            x, aux = _block_forward(cfg, bp, x, l in glob, **kw)
+        auxs.append(aux)
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    logits = x @ params.head().to(cd)
     if cfg.family == "vlm":
         logits = logits[:, image_embed.shape[1]:]
     return logits, torch.stack(auxs).mean()
@@ -210,7 +241,8 @@ def forward(params: LM, cfg: ArchConfig, tokens,
 def loss_fn(params: LM, cfg: ArchConfig, tokens, labels,
             image_embed: Optional[torch.Tensor] = None,
             aux_weight: float = 0.01, **kw) -> torch.Tensor:
-    """Next-token cross-entropy + ``aux_weight`` x the MoE aux loss."""
+    """Next-token cross-entropy + ``aux_weight`` x the MoE aux loss, the
+    reference's training loss; ``kw`` goes to :func:`forward`."""
     logits, aux = forward(params, cfg, tokens, image_embed=image_embed, **kw)
     logits = logits.float()
     labels = torch.as_tensor(labels, device=logits.device).long()

@@ -15,6 +15,7 @@ import argparse
 import dataclasses
 
 import numpy as np
+import torch
 
 from .configs.base import get_config
 from .core.api import ForestKernel
@@ -39,7 +40,8 @@ def features(device: str = "cuda", seed: int = 0):
     pipe = TokenPipeline(vocab=cfg.vocab, global_batch=512, seq_len=64,
                          seed=7)
     tokens = pipe.batch_at(0)["tokens"]
-    logits, _ = lm.forward(params, cfg, tokens, attn_chunk=32)
+    with torch.inference_mode():
+        logits, _ = lm.forward(params, cfg, tokens, attn_chunk=32)
     # final-layer logits as features (cheap stand-in), mean-pooled
     feats = logits.float().mean(dim=1).cpu().numpy()
     # supervised signal: does the sequence contain motif-heavy structure?

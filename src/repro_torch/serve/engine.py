@@ -7,13 +7,14 @@ on the host and go to the device as a (n_slots,) vector each step, so lanes
 at different offsets decode in one batched step.
 
 Admission prefills a prompt token by token through the shared batched
-step, as the reference does: each of those steps also rewrites the other
-active lanes at their current position with their current token, which
-writes the same attention-cache values again.  A recurrent state (the SSM
-conv and state caches of ssm and hybrid models) is not rewritten but
-advanced, so here, unlike the reference's engine, admission starts the
-admitted lane's recurrent state from zero and keeps every other lane's as
-it was.  For attention-only models the two engines give the same tokens.
+step, exactly as the reference's engine does: each of those steps also
+runs the other lanes at their current position with their current token.
+That writes the same attention-cache values again, but it advances a
+recurrent state (the SSM conv and state caches of ssm and hybrid models)
+once more, and a recycled lane keeps its last request's recurrent state.
+So on mamba2 and hymba a request's tokens can drift from its
+single-request decode; the reference's engine drifts the same way, and
+the two engines give the same tokens.
 """
 from __future__ import annotations
 
@@ -29,8 +30,6 @@ from ..configs.base import ArchConfig
 from ..models.lm import LM, decode_step, init_cache
 
 __all__ = ["Request", "ServingEngine"]
-
-RECURRENT = ("conv", "ssm")      # cache entries a step advances per lane
 
 
 @dataclasses.dataclass
@@ -66,20 +65,14 @@ class ServingEngine:
         self.finished: List[Request] = []
         self._cur_token = np.zeros((n_slots, 1), dtype=np.int32)
 
-    def _step(self, only: Optional[int] = None) -> torch.Tensor:
+    @torch.inference_mode()
+    def _step(self) -> torch.Tensor:
         """One batched decode step at the host's tokens and positions;
-        returns each lane's greedy next token (on the device).  With
-        ``only``, the other lanes' recurrent states stay as they were."""
+        returns each lane's greedy next token (on the device)."""
         tok = torch.from_numpy(self._cur_token.copy()).to(self.device)
         pos = torch.from_numpy(self.pos.copy()).to(self.device)
-        others = [s for s in range(self.n_slots) if s != only]
-        held = {} if only is None else {
-            k: self.cache[k][:, others].clone() for k in RECURRENT
-            if k in self.cache}
         logits, self.cache = decode_step(self.params, self.cfg, tok,
                                          self.cache, pos)
-        for k, v in held.items():
-            self.cache[k][:, others] = v
         return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
     # ---------------- public API ----------------
@@ -94,14 +87,11 @@ class ServingEngine:
             req = self.queue.popleft()
             req.slot = slot
             self.active[slot] = req
-            for k in RECURRENT:
-                if k in self.cache:
-                    self.cache[k][:, slot] = 0
             # prefill: feed prompt tokens through the decode path
             for i, t in enumerate(req.prompt):
                 self._cur_token[slot, 0] = t
                 self.pos[slot] = i
-                nxt = self._step(only=slot)
+                nxt = self._step()
             # read after the device has produced the token (the host copy
             # waits for it), so TTFT holds the prefill's device time
             self._cur_token[slot, 0] = int(nxt[slot])

@@ -1,22 +1,106 @@
-"""Prefill and decode steps (the serving half of the reference's
-``train/steps.py``; the train step comes with the training slice).
+"""Train, prefill and decode steps.
+
+``make_train_step(cfg, opt_cfg)`` returns ``(state, batch) -> (state,
+metrics)``: the loss and its gradients (autograd through ``lm.loss_fn``,
+each block rematerialized in the backward pass unless ``remat=False``),
+optionally the int8 compression round trip (over the reference's stacked
+leaves, ``compress_stacked``), then the AdamW update in place.  The state is ``{"params": LM, "opt": {"m", "v", "step"}}``, the
+reference's names; ``m`` and ``v`` are modules of the LM's layout.  The
+metrics ``loss`` and ``grad_norm`` stay 0-d tensors on the device until
+the caller reads them.
+
+The prefill and decode steps run under ``torch.inference_mode()``.
+
+The reference's ``abstract_train_state`` (shapes for its dry-run lowering)
+waits for the dry-run tools (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from ..configs.base import ArchConfig
+from ..distributed.compression import compress_decompress_grads
 from ..models import lm
+from ..models.convert import reference_path
+from .optimizer import AdamWConfig, adamw_init, adamw_update
 
-__all__ = ["make_prefill_step", "make_decode_step"]
+__all__ = ["init_train_state", "value_and_grad", "compress_stacked",
+           "make_train_step",
+           "make_prefill_step", "make_decode_step"]
+
+
+def init_train_state(cfg: ArchConfig, seed: int = 0,
+                     device="cuda") -> Dict[str, Any]:
+    """Parameters drawn from ``seed`` on ``device`` and zero moments."""
+    params = lm.init_params(cfg, seed, device=device)
+    return {"params": params, "opt": adamw_init(params)}
+
+
+def value_and_grad(cfg: ArchConfig, params: lm.LM, batch: Dict, *,
+                   block_causal: bool = True, attn_chunk: int = 512,
+                   remat: bool = True
+                   ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """The loss on ``batch`` and its gradient for each of
+    ``params.parameters()``, in that order (float32, as the leaves)."""
+    with torch.enable_grad():
+        loss = lm.loss_fn(params, cfg, batch["tokens"], batch["labels"],
+                          image_embed=batch.get("image_embed"),
+                          block_causal=block_causal, attn_chunk=attn_chunk,
+                          remat=remat)
+        grads = torch.autograd.grad(loss, list(params.parameters()))
+    return loss.detach(), list(grads)
+
+
+def compress_stacked(params: lm.LM, grads: List[torch.Tensor]
+                     ) -> List[torch.Tensor]:
+    """``compress_decompress_grads`` over the reference's leaves: each
+    leaf's per-layer gradients stacked on a leading ``L`` axis first, so a
+    256-block may span layers and a per-layer leaf under 256 elements is
+    compressed when its stack is not, as the reference's stacked pytree
+    has it.  Returns the gradients per layer again, in ``grads``' order."""
+    groups: Dict[tuple, List[int]] = {}
+    for i, (name, _) in enumerate(params.named_parameters()):
+        path, layer = reference_path(name)
+        groups.setdefault(path, []).append(i)
+    out = list(grads)
+    for path, idx in groups.items():
+        stacked = grads[idx[0]] if path[0] != "layers" else \
+            torch.stack([grads[i] for i in idx])
+        (done,) = compress_decompress_grads([stacked])
+        if path[0] != "layers":
+            out[idx[0]] = done
+        else:
+            for l, i in enumerate(idx):
+                out[i] = done[l]
+    return out
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
+                    block_causal: bool = True, attn_chunk: int = 512,
+                    compress_grads: bool = False,
+                    remat: bool = True) -> Callable:
+    opt_cfg = opt_cfg or AdamWConfig(schedule=cfg.lr_schedule)
+
+    def train_step(state, batch):
+        params = state["params"]
+        loss, grads = value_and_grad(cfg, params, batch,
+                                     block_causal=block_causal,
+                                     attn_chunk=attn_chunk, remat=remat)
+        if compress_grads:
+            grads = compress_stacked(params, grads)
+        om = adamw_update(opt_cfg, grads, state["opt"], params)
+        return state, {"loss": loss, **om}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig, attn_chunk: int = 512,
                       block_causal: bool = True) -> Callable:
     """Batched prefill: logits for a full prompt (inference forward)."""
 
+    @torch.inference_mode()
     def prefill_step(params, batch):
         logits, _ = lm.forward(params, cfg, batch["tokens"],
                                image_embed=batch.get("image_embed"),

@@ -55,6 +55,42 @@ def bf16_contract(got, ref, skip=None, what=""):
         int(decided.sum())
 
 
+def first_divergence_ok(got, ref, ref_logits):
+    """Greedy token streams in bf16: equal until the first difference,
+    where the reference's own top-2 margin (``ref_logits``, one row per
+    token) lies within the contract's tolerance (a near-tie the two
+    rounding orders may break apart)."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    diff = np.flatnonzero(got != ref)
+    if diff.size == 0:
+        return True
+    j = diff[0]
+    lg = np32(ref_logits[j])
+    top2 = np.sort(lg)[-2:]
+    return top2[1] - top2[0] <= BF16_REL * np.abs(lg).max()
+
+
+def engine_token_logits(calls, finished, req):
+    """The logits each of ``req``'s generated tokens came from, out of a
+    continuous-batching engine's steps: ``calls`` holds each step's
+    per-slot positions and per-lane logits, in order; ``finished`` the
+    engine's finished requests.  In the request's slot, a run of steps
+    starts where the slot's position drops to 0 (an admission), and token
+    j comes from the run's last step at position P - 1 + j (other lanes'
+    admissions rerun that position before it)."""
+    s = req.slot
+    order = sorted((r for r in finished if r.slot == s), key=lambda r: r.uid)
+    starts = [0] + [i for i in range(1, len(calls))
+                    if calls[i][0][s] == 0 and calls[i - 1][0][s] != 0] \
+        + [len(calls)]
+    k = order.index(req)
+    run = calls[starts[k]:starts[k + 1]]
+    P = len(req.prompt)
+    return np.stack([np32([lg for pos, lg in run
+                           if pos[s] == P - 1 + j][-1][s])
+                     for j in range(len(req.generated))])
+
+
 @contextlib.contextmanager
 def router_gaps(out: list):
     """Record, for every top-k the port's MoE router takes, each token's

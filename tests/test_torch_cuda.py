@@ -1049,20 +1049,27 @@ def test_lm_on_the_card_matches_the_cpu_in_float32(dev, arch, lm_f32):
 
 def test_lm_engine_per_slot_decode_on_the_card(dev, lm_f32):
     """The engine's lanes at different positions (5 requests of 3-9 prompt
-    tokens through 2 slots) give each request's single-request greedy
-    tokens, on the card."""
+    tokens through 2 slots): on granite each request gets its
+    single-request greedy tokens, on the card; on hymba (whose admission
+    steps advance the other lanes' SSM states, as the reference's engine
+    does) the card's engine gives the CPU engine's tokens."""
+    import copy
     from repro_torch.models import lm
     from repro_torch.serve import Request, ServingEngine
-    cfg = _lm_cfg("hymba_1p5b")            # SWA ring buffers + globals
+
+    def drain(cfg, params):
+        rng = np.random.default_rng(2)
+        eng = ServingEngine(cfg, params, n_slots=2, max_seq=32)
+        for i, n in enumerate((6, 3, 9, 4, 7)):
+            eng.submit(Request(uid=i, prompt=rng.integers(0, cfg.vocab, n)
+                               .astype(np.int32), max_new_tokens=12))
+        done = eng.run_until_drained()
+        assert len(done) == 5
+        return {r.uid: r for r in done}
+
+    cfg = _lm_cfg("granite_8b")
     params = lm.init_params(cfg, 2, device=dev)
-    rng = np.random.default_rng(2)
-    eng = ServingEngine(cfg, params, n_slots=2, max_seq=32)
-    for i, n in enumerate((6, 3, 9, 4, 7)):
-        eng.submit(Request(uid=i, prompt=rng.integers(0, cfg.vocab, n)
-                           .astype(np.int32), max_new_tokens=12))
-    done = eng.run_until_drained()
-    assert len(done) == 5
-    for r in done:
+    for r in drain(cfg, params).values():
         cache = lm.init_cache(cfg, 1, 32, device=dev)
         seq = list(r.prompt)
         for pos in range(len(r.prompt) + len(r.generated) - 1):
@@ -1072,6 +1079,12 @@ def test_lm_engine_per_slot_decode_on_the_card(dev, lm_f32):
             if pos >= len(r.prompt) - 1:
                 seq.append(int(lg[0, -1].argmax()))
         assert seq[len(r.prompt):] == r.generated, r.uid
+    cfg = _lm_cfg("hymba_1p5b")            # SWA ring buffers + globals
+    params = lm.init_params(cfg, 2, device=dev)
+    card = drain(cfg, params)
+    host = drain(cfg, copy.deepcopy(params).to("cpu"))
+    for uid, r in card.items():
+        assert r.generated == host[uid].generated, uid
 
 
 def test_moe_combine_is_deterministic_on_the_card(dev):
@@ -1089,3 +1102,96 @@ def test_moe_combine_is_deterministic_on_the_card(dev):
     assert torch.equal(a.view(torch.int16), b.view(torch.int16))
     assert torch.equal(aux_a, aux_b)
     assert torch.isfinite(a.float()).all() and a.abs().max() > 0
+
+
+def _train_pair(arch, dev, seed=0):
+    """A reduced arch's parameters on the card and a CPU copy, and a
+    seeded batch (labels the next tokens)."""
+    import copy
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import lm
+    cfg = get_config(arch).reduced()
+    params = lm.init_params(cfg, seed, device=dev)
+    tokens = np.random.default_rng(seed).integers(0, cfg.vocab, (2, 20))
+    batch = {"tokens": torch.from_numpy(tokens),
+             "labels": torch.from_numpy(np.roll(tokens, -1, axis=1))}
+    return cfg, params, copy.deepcopy(params).to("cpu"), batch
+
+
+@pytest.mark.parametrize("arch", ["granite_8b", "granite_moe_3b_a800m"])
+def test_train_step_on_the_card_matches_the_cpu(dev, arch, lm_f32):
+    """Float32 compute: the loss, every leaf's gradient (within 1e-4 of its
+    largest), the metrics and the parameters after one AdamW step, on the
+    card against the port's CPU path from the same weights and batch."""
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import make_train_step, value_and_grad
+    cfg, params, host, batch = _train_pair(arch, dev)
+    la, ga = value_and_grad(cfg, params, batch, attn_chunk=8)
+    lb, gb = value_and_grad(cfg, host, batch, attn_chunk=8)
+    torch.testing.assert_close(la.cpu(), lb, atol=1e-4, rtol=1e-4)
+    for a, b in zip(ga, gb):
+        assert torch.isfinite(a).all()
+        tol = 1e-4 * float(b.abs().max())
+        torch.testing.assert_close(a.cpu(), b, atol=tol, rtol=1e-4)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, schedule="const")
+    out = []
+    for p in (params, host):
+        state = {"params": p, "opt": adamw_init(p)}
+        state, m = make_train_step(cfg, opt, attn_chunk=8)(state, batch)
+        out.append((state, {k: float(v) for k, v in m.items()}))
+    for k in ("loss", "grad_norm", "lr"):
+        assert out[0][1][k] == pytest.approx(out[1][1][k], rel=1e-4), k
+    for a, b in zip(out[0][0]["opt"]["m"].parameters(),
+                    out[1][0]["opt"]["m"].parameters()):
+        tol = 1e-4 * float(b.abs().max())
+        torch.testing.assert_close(a.cpu(), b, atol=tol, rtol=1e-4)
+
+
+def test_moe_remat_routes_and_differentiates_as_without(dev, lm_f32,
+                                                        monkeypatch):
+    """``torch.topk`` promises no order among ties on the card, so the
+    backward pass's recomputation could route a token elsewhere than the
+    forward did.  Each layer's recomputed routing equals its first pass,
+    and the gradients equal those without remat up to the atomics of the
+    backward's scatter-adds (1e-5 of each leaf's largest)."""
+    from repro_torch.train.steps import value_and_grad
+    cfg, params, _, batch = _train_pair("granite_moe_3b_a800m", dev, seed=3)
+    seen = []
+    topk = torch.topk
+
+    def spy(x, k, *a, **kw):
+        out = topk(x, k, *a, **kw)
+        seen.append(out.indices.clone())
+        return out
+    monkeypatch.setattr(torch, "topk", spy)
+    la, ga = value_and_grad(cfg, params, batch, attn_chunk=8, remat=True)
+    L = cfg.n_layers
+    assert len(seen) == 2 * L
+    for first, again in zip(seen[:L], reversed(seen[L:])):
+        assert torch.equal(first, again)
+    lb, gb = value_and_grad(cfg, params, batch, attn_chunk=8, remat=False)
+    assert torch.equal(la, lb)
+    for a, b in zip(ga, gb):
+        torch.testing.assert_close(a, b, rtol=1e-5,
+                                   atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("shape", [(255,), (1000,), (32001, 1600),
+                                   (1600, 5504)], ids=str)
+def test_int8_compression_bits_on_the_card(dev, shape):
+    """Codes, scales and error-feedback residuals on the card equal the
+    CPU's bit for bit (hymba's embedding and MLP leaves among them)."""
+    from repro_torch.distributed.compression import (EFState, ef_compress,
+                                                     quantize_int8)
+    g = torch.randn(shape, generator=torch.Generator().manual_seed(7))
+    g.view(-1)[::13] = 0
+    qa, sa = quantize_int8(g.to(dev))
+    qb, sb = quantize_int8(g)
+    assert torch.equal(qa.cpu(), qb)
+    assert torch.equal(sa.cpu().view(torch.int32), sb.view(torch.int32))
+    r = torch.randn(shape, generator=torch.Generator().manual_seed(8)) * 1e-3
+    (oa,), efa = ef_compress([g.to(dev)], EFState([r.to(dev)]))
+    (ob,), efb = ef_compress([g], EFState([r]))
+    assert torch.equal(oa.cpu().view(torch.int32), ob.view(torch.int32))
+    assert torch.equal(efa.residual[0].cpu().view(torch.int32),
+                       efb.residual[0].view(torch.int32))

@@ -38,7 +38,8 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
 
 
 # the application layer, the observability, snapshot and serving layers
-# over it, the out-of-core modules, the LM serving path and the example twins
+# over it, the out-of-core modules, the LM serving and training paths and
+# the example twins
 LM_MODULES = (
     "repro_torch.configs", "repro_torch.configs.base",
     "repro_torch.configs.command_r_35b", "repro_torch.configs.granite_34b",
@@ -54,7 +55,11 @@ LM_MODULES = (
     "repro_torch.models.convert", "repro_torch.data.tokens",
     "repro_torch.train", "repro_torch.train.steps", "repro_torch.launch",
     "repro_torch.launch.serve", "repro_torch.serve.engine",
-    "repro_torch.serve_lm", "repro_torch.proximity_head_lm")
+    "repro_torch.serve_lm", "repro_torch.proximity_head_lm",
+    "repro_torch.train.optimizer", "repro_torch.train.checkpoint",
+    "repro_torch.train.fault_tolerance", "repro_torch.launch.train",
+    "repro_torch.distributed", "repro_torch.distributed.compression",
+    "repro_torch.train_lm_e2e")
 SLICE_MODULES = LM_MODULES + (
     "repro_torch.applications", "repro_torch.applications.embed",
     "repro_torch.applications.imputation",
