@@ -66,8 +66,8 @@
    then holds every answer against a direct call on the engine of the
    tier that gave it, and times K1 and K2 at a tick's 64 rows;
 9. drives the out-of-core row of ``benchmarks/bench_scaling.py
-   --out-of-core`` (its steps copied here) at 524,288 of its 1,000,000
-   rows (the same trees and widths): 524,288 x 20
+   --out-of-core`` (its steps copied here) at 262,144 of its 1,000,000
+   rows (the same trees and widths): 262,144 x 20
    ``gaussian_classes`` (5 classes, sep 0.8) generated into a memmap, RF
    ``gap`` with 15 trees, ``max_depth`` 32, ``min_samples_leaf`` 3, a
    scratch directory and a 512 MiB ``memory_budget_bytes``, counted and
@@ -108,12 +108,28 @@
    in a scratch directory, 30 steps uninterrupted and then failing at
    step 20 and resumed (losses within 1e-4 of the uninterrupted run's);
    (d) int8 gradient compression on the card against the CPU, bit for
-   bit.
+   bit;
+12. drives float32 factors, counted: (a) phase 1's forest as a
+   ``ForestKernel(dtype=np.float32)`` (factors the float64 ones rounded
+   once), every op of phase 1 cold and warm within 1e-5 of the largest
+   value of phase 1's float64 results and of the port's CPU float32
+   engine (loaded from the float32 archive; products on every row, blocks
+   on 64 OOS and 64 training rows), its engine bytes beside float64's, the
+   TF32 flag (off), a float32 snapshot round trip (bits equal) and a
+   ``ProximityServer`` on 64 seeded requests (answers equal to direct
+   calls); then K2's float32 forms (the same bits, within 1e-5 x max|P|
+   of the plain float32 version) timed beside float64's at 512 x 50,000 x
+   100 and at a 64-row serving tick, with cuSPARSE SpMM in float32; (b)
+   the engine's sharded product with ``default_mesh`` set to grids (1, 1),
+   (2, 1), (1, 2) and (2, 2) of cuda:0, at 7 and 64 columns, within
+   1e-12 of the segment product (one card's ``default_mesh()`` is None, so
+   the engine takes the segment path there), timed.
 
 Last it prints one ``{"kernels": [...]}`` line (launches on the main, GBT,
-applications, serving, out-of-core, LM proximity-head and LM training
-paths, errors, kernel / plain / library times and the least time the card
-could take), the card's name
+applications, serving, out-of-core, LM proximity-head, LM training and
+float32 paths; K2's float32 instantiation has its own entry), errors,
+kernel / plain / library times and the least time the card could take),
+the card's name
 and power limit, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -157,7 +173,7 @@ SERVE_MIX = (0.40, 0.25, 0.15, 0.10, 0.10)  # predict/topk/outlier/prop./embed
 MARGIN_TIE = 1e-9        # propagation labels may differ below this margin
 ATOL_EMBED = 1e-6        # embedding coordinates, after aligning signs
 # phase 9: the out-of-core row of benchmarks/bench_scaling.py --out-of-core
-OOC_ROWS, OOC_D, OOC_CLASSES, OOC_SEP = 524_288, 20, 5, 0.8
+OOC_ROWS, OOC_D, OOC_CLASSES, OOC_SEP = 262_144, 20, 5, 0.8
 OOC_TREES, OOC_DEPTH, OOC_LEAF = 15, 32, 3
 OOC_BUDGET = 512 << 20   # the row's memory_budget_bytes
 CHECK_BUDGET = 32 << 20  # check (a): every budgeted branch taken at 50k
@@ -168,6 +184,9 @@ OOC_WINDOW = 65_536      # rows of each streamed-code window checked
 OOC_TRANSIENT_MAX = 4096 << 20  # the row's own ceiling for a 512 MiB budget
 OOC_RTOL = 1e-10         # outlier sums and scores against the host
 ATOL_PRODUCT = 1e-15     # budgeted products (index_add_ atomics) vs phase 1
+# phase 12: float32 factors; the CPU checks' block rows (tolerance and
+# top-k tie rule: tests/_f32_contract.py)
+CHECK_ROWS_F32 = 64
 # phase 10: the LM serving path (hymba_1p5b at its published width)
 LM_ARCH = "hymba_1p5b"
 LM_B, LM_S = 2, 1280          # past the 1,024 window; 5 SSD chunks of 256
@@ -288,6 +307,29 @@ def ops_per_call(counts):
                 if k.startswith("void histogram_") and "_kernel<" in k)
     return {k.split("(")[0].replace("void ", ""): v / calls
             for k, v in sorted(counts.items())}
+
+
+def k2_bound(torch, index, gl_q, q, fma_s):
+    """K2's least time for one leaf-form block, in s, by bytes and by
+    operations, counting what these inputs need: the query rows' ``gl``
+    and ``q`` once; the offsets row and the members (int32 column and
+    weight) of each reference leaf that a nonzero query factor falls into,
+    once — a leaf no query reaches is never read; the (Nq, Nw) output
+    once; one FMA (``fma_s`` a second) per collision whose q and w are
+    both nonzero.  Returns ``(terms, collisions counted, index bytes
+    counted)``."""
+    hit = gl_q.reshape(-1)[q.reshape(-1) != 0].long()
+    members = (index.offs[:, -1] - index.offs[:, 0]).long()
+    leaves = torch.unique(hit)
+    index_bytes = (leaves.numel() * index.offs.shape[1]
+                   * index.offs.element_size()
+                   + int(members[leaves].sum())
+                   * (index.col.element_size() + index.w.element_size()))
+    work = float(members[hit].sum())
+    nbytes = (gl_q.numel() * (gl_q.element_size() + q.element_size())
+              + index_bytes + q.shape[0] * index.n_ref * q.element_size())
+    return ({"bytes": nbytes / HBM_BYTES_S, "operations": work / fma_s},
+            work, index_bytes)
 
 
 def same_bits(a, b):
@@ -1387,6 +1429,355 @@ def phase11(torch, dev):
     del gd
     print(f"phase 11 wall: {time.perf_counter() - t11:.1f} s", flush=True)
 
+
+def phase12(torch, dev, fk, Xtr, ytr, Xte, snap_bytes64):
+    """Phase 12: (a) float32 factors on the card — the acceptance forest of
+    phase 1 as a ``ForestKernel(dtype=np.float32)``, counted: its factors,
+    every op cold and warm against phase 1's float64 kernel and against
+    the port's CPU float32 engine on a stated subset of rows, its engine
+    bytes, a snapshot round trip and a ``ProximityServer``; then K2's
+    float32 forms against each other, their plain version, float64's
+    forms and cuSPARSE at 512 x 50,000 x 100 and at a serving tick.  (b)
+    the engine's sharded product on grids of cuda:0 against the segment
+    product.  Returns the float32 K2 numbers of the kernels line and the
+    path's launches."""
+    from repro_torch.core import torch_ops
+    from repro_torch.core.api import ForestKernel
+    from repro_torch.core.factorization import factor_digest
+    from repro_torch.kernels.block_prox.ops import block_prox
+    from repro_torch.kernels.block_prox.ref import block_prox_ref
+    from repro_torch.kernels.histogram.ops import histogram, moments
+    from repro_torch.kernels.leaf_route.ops import route
+    from repro_torch.obs.metrics import global_registry
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _f32_contract import RTOL_F32, decided_rows
+    t12 = time.perf_counter()
+    eng = fk.engine
+    Xq, rows = Xte[:TOPK_ROWS], np.arange(BLOCK_ROWS)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    check(not tf32, "float32 GEMMs would run in TF32")
+    # phase 1's kernel's float64 results (K(+1) top-k values for the tie
+    # rule), before the float32 path's counts start
+    base = {
+        "predict_train": eng.predict(ytr, N_CLASSES),
+        "predict_oos": eng.predict(ytr, N_CLASSES, X=Xte),
+        "topk_oos": eng.topk(K + 1, X=Xq),
+        "kernel_block": eng.kernel_block(rows),
+        "squared_row_sums_oos": eng.squared_row_sums(ytr, N_CLASSES, X=Xte),
+        "row_sums": eng.row_sums(),
+        "topk_train": eng.topk(K + 1),
+        "squared_row_sums_train": eng.squared_row_sums(ytr, N_CLASSES)}
+    torch.cuda.synchronize()
+
+    # ---- (a) the float32 path, counted ----
+    counters = {"leaf_route": route, "block_prox": block_prox,
+                "histogram": histogram, "moments": moments}
+    for f in counters.values():
+        f.launches = 0
+    block_prox.launches_f32 = 0
+    t = time.perf_counter()
+    fk32 = ForestKernel(model_type="rf", kernel_method="gap",
+                        n_trees=N_TREES, n_bins=64, seed=0, device="cuda",
+                        dtype=np.float32)
+    fk32.forest = fk.forest
+    fk32.build_kernel_cache()
+    torch.cuda.synchronize()
+    cache_s = time.perf_counter() - t
+    e32 = fk32.engine
+    check(e32.q.dtype == e32.w.dtype == torch.float32, "factors not float32")
+    check(torch.equal(eng.q.to(torch.float32), e32.q)
+          and torch.equal(eng.w.to(torch.float32), e32.w),
+          "float32 factors are not the float64 ones rounded once")
+    calls = {
+        "predict_train": lambda: e32.predict(ytr, N_CLASSES),
+        "predict_oos": lambda: e32.predict(ytr, N_CLASSES, X=Xte),
+        "topk_oos": lambda: fk32.topk(k=K, X=Xq),
+        "kernel_block": lambda: fk32.kernel_block(rows),
+        "squared_row_sums_oos": lambda: e32.squared_row_sums(
+            ytr, N_CLASSES, X=Xte),
+        "row_sums": lambda: fk32.row_sums(),
+        "topk_train": lambda: fk32.topk(k=K),
+        "squared_row_sums_train": lambda: e32.squared_row_sums(ytr,
+                                                              N_CLASSES)}
+    out32, cold, warm = {}, {}, {}
+    for name, fn in calls.items():
+        t = time.perf_counter()
+        out32[name] = fn()
+        torch.cuda.synchronize()
+        cold[name] = time.perf_counter() - t
+        times = []
+        for _ in range(WARM_REPS):
+            if name == "row_sums":
+                e32._train_row_sums = None        # cached after a call
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        warm[name] = float(np.median(times))
+
+    # the snapshot round trip and the CPU float32 engine (loaded from it)
+    with tempfile.TemporaryDirectory() as snap_dir:
+        path = os.path.join(snap_dir, "acceptance32.npz")
+        t = time.perf_counter()
+        manifest = fk32.save(path)
+        save_s = time.perf_counter() - t
+        snap_bytes = os.path.getsize(path)
+        t = time.perf_counter()
+        lk = ForestKernel.load(path, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        hk = ForestKernel.load(path, device="cpu")
+    check(manifest["config"]["dtype"] == "float32", "archive dtype")
+    check(lk.engine.dtype == np.float32 and torch.equal(lk.engine.q, e32.q)
+          and torch.equal(lk.engine.w, e32.w), "loaded float32 factors")
+    check(factor_digest(lk.engine.gl, lk.engine.q, lk.engine.w)
+          == manifest["factor_digest"], "loaded factor digest")
+    check(torch.equal(lk.kernel_block(rows), out32["kernel_block"])
+          and all(torch.equal(a, b) for a, b in zip(
+              lk.topk(k=K, X=Xq), out32["topk_oos"])),
+          "loaded float32 kernel's blocks or top-k differ")
+    del lk
+
+    # a ProximityServer over the float32 kernel: 64 seeded requests
+    rng12 = np.random.default_rng(12)
+    kinds = rng12.choice(("predict", "topk", "outlier"), size=64,
+                         p=(0.5, 0.3, 0.2))
+    sizes = rng12.integers(1, 17, size=64)
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    check(offs[-1] <= len(Xte), "serving rows exceed the OOS batch")
+    reqs = [(str(kd), Xte[offs[i]:offs[i + 1]]) + ((K,) if kd == "topk"
+                                                   else ())
+            for i, kd in enumerate(kinds)]
+    srv = fk32.serve(n_slots=SERVE_SLOTS)
+    t = time.perf_counter()
+    res = srv.serve(reqs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t
+    launches = {k: f.launches for k, f in counters.items()}
+    launches_f32 = block_prox.launches_f32
+    print(f"phase 12 (a) float32 path launches K1/K2 f64/K3/K4: "
+          f"{'/'.join(str(v) for v in launches.values())}, K2 float32 "
+          f"{launches_f32}", flush=True)
+    check(launches_f32 > 0, "K2's float32 form was not launched")
+    check(launches["block_prox"] == 0, "the float32 path launched K2 f64")
+
+    # checks: against phase 1's float64 results, then the CPU engine
+    from repro_torch.applications.outliers import oos_outlier_scores
+    tol = {}
+
+    def rel(a, b):
+        """max |a - b| over max |b| (a, b tensors or arrays)."""
+        a = a.detach().double().cpu().numpy() if hasattr(a, "detach") \
+            else np.asarray(a, np.float64)
+        b = b.detach().double().cpu().numpy() if hasattr(b, "detach") \
+            else np.asarray(b, np.float64)
+        check(a.shape == b.shape, f"shape {a.shape} != {b.shape}")
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+    undecided = {}
+    for name, got in out32.items():
+        want = base[name]
+        if name.startswith("topk"):
+            (gi, gv), (wi, wv) = got, want
+            check(gv.dtype == torch.float64 and gi.dtype == torch.int64,
+                  f"{name} dtypes")
+            tol[name] = rel(gv, wv[:, :K])
+            ok = decided_rows(wv, K, RTOL_F32 * float(wv[:, 0].max()))
+            check(torch.equal(gi[torch.as_tensor(ok, device=dev)],
+                              wi[:, :K][torch.as_tensor(ok, device=dev)]),
+                  f"{name}: ids differ from float64 on decided rows")
+            undecided[name] = int((~ok).sum())
+        else:
+            check(got.dtype == torch.float32, f"{name} is not float32")
+            tol[name] = rel(got, want)
+    for name, e in tol.items():
+        check(e <= RTOL_F32, f"float32 {name} off float64 by {e}")
+
+    # the CPU float32 engine on the same factors: products on every row,
+    # blocks on CHECK_ROWS_F32 OOS and training rows
+    n = CHECK_ROWS_F32
+    he = hk.engine
+    Xs = np.ascontiguousarray(Xte[:n])
+    blk_tr = he.kernel_block(np.arange(n))
+    onehot = torch.zeros((he.n_ref, N_CLASSES), dtype=torch.float32)
+    onehot[torch.arange(he.n_ref), torch.as_tensor(ytr)] = 1.0
+    hi, hv = he.topk(K + 1, X=Xs)
+    host = {
+        "predict_train": (out32["predict_train"], he.predict(ytr,
+                                                             N_CLASSES)),
+        "predict_oos": (out32["predict_oos"][:n],
+                        he.predict(ytr, N_CLASSES, X=Xs)),
+        "row_sums": (out32["row_sums"], he.row_sums()),
+        "kernel_block": (out32["kernel_block"][:n], blk_tr),
+        "squared_row_sums_oos": (out32["squared_row_sums_oos"][:n],
+                                 he.squared_row_sums(ytr, N_CLASSES, X=Xs)),
+        "squared_row_sums_train": (out32["squared_row_sums_train"][:n],
+                                   (blk_tr * blk_tr) @ onehot),
+        "topk_oos": (out32["topk_oos"][1][:n], hv[:, :K]),
+        "topk_train": (out32["topk_train"][1][:n], torch.sort(
+            blk_tr, dim=1, descending=True).values[:, :K].double())}
+    herr = {}
+    for name, (a, b) in host.items():
+        check(a.dtype == b.dtype, f"{name}: card {a.dtype}, CPU {b.dtype}")
+        herr[name] = rel(a, b)
+        check(herr[name] <= RTOL_F32, f"float32 {name} off the CPU engine "
+              f"by {herr[name]}")
+    ok = decided_rows(hv, K, RTOL_F32 * float(hv[:, 0].max()))
+    check(np.array_equal(out32["topk_oos"][0][:n].cpu().numpy()[ok],
+                         hi[:, :K].numpy()[ok]),
+          "topk_oos ids differ from the CPU engine on decided rows")
+
+    # served answers against direct calls on the float32 engine
+    serr, near = 0.0, 0
+    for (kind, Xr, *_), got in zip(reqs, res):
+        Xr = np.ascontiguousarray(Xr)
+        if kind == "predict":
+            sc = e32.predict(ytr, N_CLASSES, X=Xr)
+            top2 = torch.topk(sc, 2, dim=1).values
+            tie = (top2[:, 0] - top2[:, 1]
+                   <= RTOL_F32 * top2[:, 0]).cpu().numpy()
+            diff = got["labels"] != sc.argmax(1).cpu().numpy()
+            check(not (diff & ~tie).any(), "served float32 predict labels")
+            near += int(tie.sum())
+        elif kind == "topk":
+            i_, v_ = (t.cpu().numpy() for t in e32.topk(k=K, X=Xr))
+            check(np.array_equal(got["indices"], i_),
+                  "served float32 topk ids")
+            serr = max(serr, float(np.abs(got["values"] - v_).max()))
+        else:
+            want = oos_outlier_scores(e32, ytr, Xr).cpu().numpy()
+            serr = max(serr, float(np.abs(got["scores"] - want).max()
+                                   / max(np.abs(want).max(), 1e-300)))
+    check(serr <= RTOL_F32, f"served float32 answers off by {serr}")
+    m32, m64 = e32.memory_bytes(), eng.memory_bytes()
+    check(m32["dense_factors"] < m64["dense_factors"], "float32 bytes")
+    print(f"phase 12 (a) float32 kernel from phase 1's forest: cache "
+          f"{cache_s:.3f} s; factors = float64 rounded once; TF32 "
+          f"{'on' if tf32 else 'off'}; ops (cold s / warm s, error vs "
+          f"float64 / vs the CPU float32 engine on {n} rows of the blocks): "
+          + ", ".join(f"{k} {cold[k]:.4f} / {warm[k]:.4f} ({tol[k]:.1e} / "
+                      f"{herr[k]:.1e})" for k in calls)
+          + f"; top-k rows with values within {RTOL_F32:g} of the next "
+          f"(ids not compared): {undecided}", flush=True)
+    print(f"phase 12 (a) engine bytes float32 / float64: " + ", ".join(
+        f"{k} {m32[k]} / {m64[k]}" for k in ("dense_factors", "Q", "W",
+                                              "leaf_index", "total")),
+          flush=True)
+    print(f"phase 12 (a) snapshot: save {save_s:.3f} s, load {load_s:.3f} "
+          f"s, archive {snap_bytes} bytes (float64 {snap_bytes64}); bits "
+          f"equal; server: 64 requests in {serve_s:.3f} s, answers equal "
+          f"to direct calls (values within {serr:.1e}; {near} predict rows "
+          f"at a top-two near-tie)", flush=True)
+
+    # K2's float32 forms at 512 x 50,000 x 100 and at a serving tick,
+    # beside float64's (same call, interleaved); not counted
+    index32, index64 = e32.leaf_index(), eng.leaf_index()
+    tick32, tick64 = e32.query_state(Xte[:64]), eng.query_state(Xte[:64])
+    cases = {f"{BLOCK_ROWS}x{N_TRAIN}": ((e32.gl[:BLOCK_ROWS],
+                                          e32.q[:BLOCK_ROWS]),
+                                         (eng.gl[:BLOCK_ROWS],
+                                          eng.q[:BLOCK_ROWS])),
+             f"tick 64x{N_TRAIN}": ((tick32.gl, tick32.q),
+                                    (tick64.gl, tick64.q))}
+    k2 = {}
+    for name, ((g32, q32), (g64, q64)) in cases.items():
+        leaf = block_prox(g32, q32, e32.gl, e32.w, index=index32)
+        dense = block_prox(g32, q32, e32.gl, e32.w)
+        check(torch.equal(leaf.view(torch.int32), dense.view(torch.int32)),
+              f"K2 float32 ({name}): leaf and dense forms differ")
+        plain = block_prox_ref(g32, q32, e32.gl, e32.w)
+        err = max_err(leaf, plain)
+        check(err <= RTOL_F32 * float(plain.abs().max()),
+              f"K2 float32 ({name}) off its plain version by {err}")
+        ms = {
+            "f64 leaf": cuda_ms(torch, lambda: block_prox(
+                g64, q64, eng.gl, eng.w, index=index64), 10),
+            "f32 leaf": cuda_ms(torch, lambda: block_prox(
+                g32, q32, e32.gl, e32.w, index=index32), 10),
+            "f32 dense": cuda_ms(torch, lambda: block_prox(
+                g32, q32, e32.gl, e32.w), 10),
+            "f64 dense": cuda_ms(torch, lambda: block_prox(
+                g64, q64, eng.gl, eng.w), 10)}
+        k2[name] = (err, ms, leaf)
+    g32, q32 = cases[f"{BLOCK_ROWS}x{N_TRAIN}"][0]
+    plain_ms = cuda_ms(torch, lambda: block_prox_ref(g32, q32, e32.gl,
+                                                     e32.w), 2)
+    W32 = hk.engine.W
+    W_dev = torch.sparse_csr_tensor(
+        torch.as_tensor(W32.indptr, dtype=torch.int64),
+        torch.as_tensor(W32.indices, dtype=torch.int64),
+        torch.as_tensor(W32.data), size=W32.shape, device=dev)
+    QrT = torch.as_tensor(hk.engine.Q[rows].toarray().T.copy(), device=dev)
+    check(QrT.dtype == torch.float32, "SpMM operand not float32")
+    lib_out = torch.sparse.mm(W_dev, QrT).t()
+    lib_err = max_err(lib_out, k2[f"{BLOCK_ROWS}x{N_TRAIN}"][2])
+    lib_ms = cuda_ms(torch, lambda: torch.sparse.mm(W_dev, QrT), 10)
+    terms, _, read32 = k2_bound(torch, index32, g32, q32, FP32_S / 2)
+    bound_by = max(terms, key=terms.get)
+    print("phase 12 (a) K2 ms a call (f64 leaf / f32 leaf / f32 dense / "
+          "f64 dense), float32 forms the same bits: " + ", ".join(
+              f"{k} {v[1]['f64 leaf']:.4f} / {v[1]['f32 leaf']:.4f} / "
+              f"{v[1]['f32 dense']:.4f} / {v[1]['f64 dense']:.4f} (err vs "
+              f"plain {v[0]:.1e})" for k, v in k2.items())
+          + f"; plain float32 {plain_ms:.3f} ms, cuSPARSE SpMM float32 "
+          f"{lib_ms:.3f} ms (err {lib_err:.1e}), bound "
+          f"{terms[bound_by] * 1e3:.4f} ms by {bound_by} (index "
+          f"{index32.nbytes} bytes, {read32} of them reached by these "
+          f"queries; float64's {index64.nbytes})",
+          flush=True)
+    del hk, he, blk_tr, out32, base
+
+    # ---- (b) the sharded product on grids of cuda:0 ----
+    real = torch_ops.default_mesh
+    rng = np.random.default_rng(13)
+    sh = {}
+    sharded_calls = global_registry().counter(
+        "engine_op_calls_total", "engine op invocations",
+        labels=("op", "backend", "tier")).labels(
+        op="sharded_matmat", backend=dev.type, tier="")
+    calls_before = sharded_calls.value
+    for C in (7, 64):
+        V = torch.as_tensor(rng.normal(size=(N_TRAIN, C)), device=dev)
+        seg = eng.matmat(V)
+        check(eng.last_matmat_path == "segment",
+              "one card: the engine did not take the segment path")
+        # the segment product with its bucket table built every call, as
+        # the sharded path builds its tables (the engine caches a narrow
+        # V's table)
+        seg_ms = cuda_ms(torch, lambda: torch_ops.swlc_matmat(
+            eng.gl, eng.q, eng.w, V, eng.total_leaves, eng._t_chunk(C)), 3)
+        sh[(C, "segment")] = (0.0, seg_ms, None)
+        try:
+            for dp, mp in ((1, 1), (2, 1), (1, 2), (2, 2)):
+                grid = np.empty((dp, mp), dtype=object)
+                for a in range(dp):
+                    for b in range(mp):
+                        grid[a, b] = dev
+                torch_ops.default_mesh = lambda: grid
+                got = eng.matmat(V)
+                check(eng.last_matmat_path == "sharded",
+                      f"grid {dp}x{mp}: the engine did not shard")
+                err = max_err(got, seg)
+                check(err <= 1e-12, f"sharded {dp}x{mp} x {C} off the "
+                      f"segment product by {err}")
+                c = torch_ops.auto_c_chunk(N_TRAIN // dp, N_TREES, C)
+                sh[(C, f"{dp}x{mp}")] = (
+                    err, cuda_ms(torch, lambda: eng.matmat(V), 3), c)
+        finally:
+            torch_ops.default_mesh = real
+    n_obs = sharded_calls.value - calls_before
+    check(n_obs > 0, "sharded calls were not observed")
+    print("phase 12 (b) engine matmat on grids of cuda:0 (ms a call, err "
+          "vs the segment product, auto_c_chunk columns): " + ", ".join(
+              f"{C} cols {g} {ms:.3f} ({err:.1e}, c={c})"
+              for (C, g), (err, ms, c) in sh.items())
+          + f"; {int(n_obs)} sharded_matmat calls observed", flush=True)
+    print(f"phase 12 wall: {time.perf_counter() - t12:.1f} s", flush=True)
+    return {"launches": launches, "launches_f32": launches_f32,
+            "max_abs_err": max(v[0] for v in k2.values()),
+            "ms": k2[f"{BLOCK_ROWS}x{N_TRAIN}"][1]["f32 leaf"],
+            "plain_ms": plain_ms, "bound_ms": terms[bound_by] * 1e3,
+            "bound_by": bound_by, "library_ms": lib_ms}
 
 def main() -> int:
     import torch
@@ -2680,6 +3071,9 @@ def main() -> int:
     print(f"phase 11 launches K1/K2/K3/K4: "
           f"{'/'.join(str(v) for v in train_launches.values())}", flush=True)
 
+    # ---- phase 12: float32 factors and the sharded product ----
+    k2f32 = phase12(torch, dev, fk, Xtr, ytr, Xte, snap_bytes)
+
     # ---- bounds, from this run's shapes and data ----
     # K1 reads X once, each real node's 16-byte record once (not the
     # padding up to M) and writes the (n, T) int32 leaves
@@ -2696,15 +3090,9 @@ def main() -> int:
     collisions = float(cnt_w[gl_q.reshape(-1).long()].sum())
     # K2's work is one FMA per collision whose q and w are both nonzero —
     # what these inputs need, not the Nq·Nw·T compares of the dense
-    # algorithm; its bytes are gl/q of the query rows (12 bytes a (row,
-    # tree)), the reference side as it reads it (the leaf index) and the
-    # output
-    cnt_nz = (index.offs[:, -1] - index.offs[:, 0]).long()
-    work = float((cnt_nz[gl_q.reshape(-1).long()]
-                  * (q.reshape(-1) != 0)).sum())
-    k2_bytes = nq * T * 12 + index.nbytes + nq * nw * 8
-    k2_terms = {"bytes": k2_bytes / HBM_BYTES_S,
-                "operations": work / FP64_FMA_S}
+    # algorithm; its bytes are gl/q of the query rows, the part of the
+    # leaf index these rows reach and the output
+    k2_terms, work, k2_read = k2_bound(torch, index, gl_q, q, FP64_FMA_S)
     k2_by = max(k2_terms, key=k2_terms.get)
     # K3/K4 read the code matrix, each instance's row id, label and
     # weight (or K payloads) once and write the table; the work is one add
@@ -2722,7 +3110,7 @@ def main() -> int:
     def total(name):
         return launches[name] + gbt_launches[name] + app_launches[name] \
             + serve_launches[name] + ooc_launches[name] + lm_launches[name] \
-            + train_launches[name]
+            + train_launches[name] + k2f32["launches"][name]
     kernels = [
         {"name": "leaf_route", "route": "cuda",
          "source": "src/repro_torch/kernels/leaf_route/csrc/leaf_route.cu",
@@ -2739,6 +3127,14 @@ def main() -> int:
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_terms[k2_by] * 1e3, "bound_by": k2_by,
          "library_ms": k2_lib_ms},
+        {"name": "block_prox_f32", "route": "cuda",
+         "source": "src/repro_torch/kernels/block_prox/csrc/block_prox.cu",
+         "replaces": "src/repro/kernels/block_prox/block_prox.py:56",
+         "launches": k2f32["launches_f32"],
+         "max_abs_err": k2f32["max_abs_err"],
+         "ms": k2f32["ms"], "plain_ms": k2f32["plain_ms"],
+         "bound_ms": k2f32["bound_ms"], "bound_by": k2f32["bound_by"],
+         "library_ms": k2f32["library_ms"]},
         {"name": "histogram", "route": "cuda",
          "source": "src/repro_torch/kernels/histogram/csrc/histogram.cu",
          "replaces": "src/repro/kernels/histogram/histogram.py:110",
@@ -2764,7 +3160,8 @@ def main() -> int:
           f"{k2_dense_ms:.4f} ms), plain "
           f"{k2_plain_ms:.3f} ms, cuSPARSE SpMM {k2_lib_ms:.3f} ms (err "
           f"{lib_err:.2e}), bound {k2_terms[k2_by] * 1e3:.4f} ms by {k2_by} "
-          f"(collisions {collisions:.3e}, with nonzero q and w {work:.3e})")
+          f"(collisions {collisions:.3e}, with nonzero q and w {work:.3e}; "
+          f"index {index.nbytes} bytes, {k2_read} of them reached)")
     print(f"K3 level 1 {N_TREES} nodes x {m3} instances x {D} x {n_bins} x "
           f"{N_CLASSES}: {k3_ms:.3f} ms a wrapper call with host bounds "
           f"({k3_dev_ms:.3f} ms in its kernels on the device, host share "
@@ -2784,11 +3181,13 @@ def main() -> int:
           f"{k4_alt_ms:.3f} ms a call, {k4_alt_dev:.3f} ms on the device, "
           f"same bits)")
     print("launches (main path + GBT path + applications path + serving "
-          "path + out-of-core path + LM proximity head + LM training): "
-          + ", ".join(
+          "path + out-of-core path + LM proximity head + LM training + "
+          "float32 path): " + ", ".join(
               f"{k} {launches[k]} + {gbt_launches[k]} + {app_launches[k]} "
               f"+ {serve_launches[k]} + {ooc_launches[k]} + "
-              f"{lm_launches[k]} + {train_launches[k]}" for k in wrappers))
+              f"{lm_launches[k]} + {train_launches[k]} + "
+              f"{k2f32['launches'][k]}" for k in wrappers)
+          + f"; block_prox_f32 {k2f32['launches_f32']} (float32 path)")
     print(f"wall: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -48,7 +48,9 @@ def _solve(engine, Y0: torch.Tensor, labeled: torch.Tensor, alpha: float,
 
 
 def _to_scores(F: torch.Tensor) -> torch.Tensor:
-    rs = F.sum(dim=1, keepdim=True)
+    # float64 for a float32 field too, as the reference's scores are (its
+    # float64 ``tiny`` widens the row sums)
+    rs = F.sum(dim=1, keepdim=True).to(torch.float64)
     return F / rs.clamp_min(np.finfo(np.float64).tiny)
 
 

@@ -157,6 +157,7 @@ class CompressedProximityEngine(ProximityEngine):
         self.assignment = parent.assignment
         self.forest = parent.forest
         self.device = parent.device
+        self.dtype = parent.dtype
         self.total_leaves = parent.total_leaves
         rows = torch.as_tensor(indices, device=self.device)
         self.gl = parent.gl[rows].contiguous()

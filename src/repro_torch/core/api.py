@@ -14,8 +14,11 @@ Three stages:
 
 ``fit`` = fit_forest + build_kernel_cache.  ``device="cuda"`` (the default)
 raises when no card is present; ``device="cpu"`` runs the same path through
-the kernels' plain versions.  Covered here: ``model_type`` "rf", "et" and
-"gbt", ``kernel_method`` "original", "kerf", "oob", "gap", "ih" and
+the kernels' plain versions.  ``dtype`` is the factors' type, float64 (the
+default) or float32, as in the reference: the weights are computed in
+float64 and rounded once, and the engine computes in that type (the block
+kernel has an instantiation for each).  Covered here: ``model_type`` "rf",
+"et" and "gbt", ``kernel_method`` "original", "kerf", "oob", "gap", "ih" and
 "boosted", the proximity applications (imputation, outlier scores,
 prototypes and compression, label propagation, embedding), the
 depth-prefix engine, durable snapshots (``save``/``load``, in the
@@ -64,6 +67,7 @@ class ForestKernel:
     max_features: Optional[str] = "sqrt"
     n_bins: int = 64
     seed: int = 0
+    dtype: type = np.float64         # factor dtype: np.float64 | np.float32
     n_jobs: int = 0                  # host tree-fitting workers (0 = auto)
     device: str = "cuda"             # 'cuda' | 'cpu' (no silent fallback)
     tree_backend: str = "auto"       # trainer: 'auto' | 'numpy' | 'torch'
@@ -112,7 +116,7 @@ class ForestKernel:
             self.forest, row_chunk=self._context_row_chunk())
         self.assignment = get_assignment(self.kernel_method, self.ctx)
         self.engine = ProximityEngine(
-            self.ctx, self.assignment, forest=self.forest,
+            self.ctx, self.assignment, forest=self.forest, dtype=self.dtype,
             memory_budget_bytes=self.memory_budget_bytes,
             factor_scratch_dir=self.scratch_dir)
         self.Q_ = self.engine.Q

@@ -9,8 +9,8 @@ manifest's ``base_score`` for a gradient-boosted kernel.  The dict an
 not routed again and the SWLC factors are recomputed on the device from the
 saved leaves (for ``kernel_method="ih"`` from the saved ``X``, ``y`` and the
 trees' split features too), so the result computes the same kernel as the
-source.
-Checksum validation and a snapshot writer come in a later slice.
+source.  It validates no checksum: ``core.snapshot.load_kernel`` reads
+whole archives.
 """
 from __future__ import annotations
 
@@ -38,17 +38,20 @@ def forest_kernel_from_arrays(arrays, config: dict, device="cuda",
     """A port ``ForestKernel`` on ``device`` from saved reference arrays.
 
     ``config`` is the reference kernel's constructor config (a snapshot
-    manifest's ``"config"``); keys the port has no counterpart for (engine,
-    routing and trainer backends, dtype) are ignored, because the port has
-    one path for each (its out-of-core settings are kept and the engine
-    is built under them): in particular the reference's
-    ``tree_backend`` ('native', 'jax', ...) is dropped, and the port's
-    resolves from ``device``.  ``base_score`` is the manifest's
-    ``"base_score"`` (a gradient-boosted kernel's initial score).
+    manifest's ``"config"``); its ``dtype`` (a type or its name, float64
+    or float32) and out-of-core settings are kept, and the engine is built
+    under them.  Keys the port has no counterpart for (engine, routing and
+    trainer backends) are ignored, because the port has one path for each:
+    in particular the reference's ``tree_backend`` ('native', 'jax', ...)
+    is dropped, and the port's resolves from ``device``.  ``base_score`` is
+    the manifest's ``"base_score"`` (a gradient-boosted kernel's initial
+    score).
     """
     names = {f.name for f in dataclasses.fields(ForestKernel)}
     kw = {k: v for k, v in config.items()
           if k in names and k not in ("device", "tree_backend")}
+    if "dtype" in kw:
+        kw["dtype"] = np.dtype(kw["dtype"]).type
     fk = ForestKernel(**kw, device=device)
     forest = fk._forest()
     forest.trees_ = unpack_trees({k: np.asarray(arrays[f"tree_{k}"])
@@ -75,7 +78,7 @@ def forest_kernel_from_arrays(arrays, config: dict, device="cuda",
         forest, leaves=np.ascontiguousarray(arrays["leaves"], dtype=np.int32))
     fk.assignment = get_assignment(fk.kernel_method, fk.ctx)
     fk.engine = ProximityEngine(
-        fk.ctx, fk.assignment, forest=forest,
+        fk.ctx, fk.assignment, forest=forest, dtype=fk.dtype,
         memory_budget_bytes=fk.memory_budget_bytes,
         factor_scratch_dir=fk.scratch_dir)
     fk.Q_, fk.W_ = fk.engine.Q, fk.engine.W

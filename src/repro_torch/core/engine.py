@@ -4,7 +4,9 @@
 the hot paths need:
 
 - dense ``(gl, q, w)`` factors on the device (``gl`` int32 global leaf ids,
-  ``q``/``w`` float64 SWLC weights of Def 3.1),
+  ``q``/``w`` the SWLC weights of Def 3.1 in the engine's ``dtype``,
+  float64 by default or float32: computed in float64 and rounded once, as
+  the reference's are),
 - the host CSR leaf maps ``Q``/``W`` (Lemma 3.4 factors) for the full
   kernel, the operator's transpose and train-side all-pairs jobs,
 - an LRU of out-of-sample query states, so repeated ``predict(X=...)``
@@ -20,7 +22,13 @@ side grouped by leaf (``leaf_index``, built on the device at the first
 such call); with big leaves it runs the kernel's dense form.
 On a CPU engine the same calls take the kernels' plain versions, and large
 train-side top-k and squared row sums take the host CSR factors instead.
-Results are tensors on the engine's device.
+Results are tensors on the engine's device, in the engine's dtype (top-k
+values in float64, as the reference's scipy engine gives them).
+
+With several cards, products on the training rows take the sharded path
+(``torch_ops.sharded_swlc_matmat`` over ``torch_ops.default_mesh()``: rows
+split over the cards), as the reference's jax engine does over its
+devices; ``last_matmat_path`` says which path the last product took.
 
 Out of core, ``memory_budget_bytes`` bounds the transients: the CSR maps
 are built from row chunks of the device factors (``streamed_leaf_map``,
@@ -34,7 +42,8 @@ card their ``index_add_`` atomics vary in the last bits either way).
 
 ``PrefixProximityEngine`` is the depth-prefix tier: the engine of the
 depth-truncated forest, contracted from a fitted parent engine without
-routing again; like the compressed view, it keeps its parent's budget.
+routing again; like the compressed view, it keeps its parent's budget
+and dtype.
 """
 from __future__ import annotations
 
@@ -77,6 +86,9 @@ _REF_CACHE_BYTES = 1 << 27
 # bits) however many rows its block kernel call held; block heights are
 # multiples of it.
 _SUM_ROWS = 32
+# the factor dtypes an engine takes (the block kernel's two instantiations)
+_TORCH_DTYPE = {np.dtype(np.float64): torch.float64,
+                np.dtype(np.float32): torch.float32}
 
 
 class _HostRows:
@@ -94,14 +106,15 @@ class _HostRows:
 class QueryState:
     """Everything needed to use a sample batch as the query side of P.
 
-    ``gl``/``q`` live on the device; the host CSR map ``Q`` is built from
-    them the first time it is read, so the device path never waits on it.
+    ``gl``/``q`` live on the device; the host CSR map ``Q`` (in ``q``'s
+    dtype) is built from them the first time it is read, so the device
+    path never waits on it.
     """
 
     def __init__(self, gl: torch.Tensor, q: torch.Tensor, total_leaves: int,
                  Q: Optional[sp.csr_matrix] = None):
         self.gl = gl                 # (Nq, T) int32 global leaf ids
-        self.q = q                   # (Nq, T) float64 query weights
+        self.q = q                   # (Nq, T) query weights, engine dtype
         self._total_leaves = total_leaves
         self._Q = Q
         self._lock = threading.Lock()
@@ -114,9 +127,10 @@ class QueryState:
     def Q(self) -> sp.csr_matrix:
         with self._lock:
             if self._Q is None:
+                q = self.q.cpu().numpy()
                 self._Q = build_leaf_map(
-                    self.gl.cpu().numpy().astype(np.int64),
-                    self.q.cpu().numpy(), self._total_leaves)
+                    self.gl.cpu().numpy().astype(np.int64), q,
+                    self._total_leaves, q.dtype)
             return self._Q
 
 
@@ -130,31 +144,38 @@ class ProximityEngine:
     # on the card, in ``block_prox`` row blocks, at every size.
     _SPARSE_TRAIN_CUTOVER = 8192
 
-    def __init__(self, ctx, assignment, forest=None, oos_cache_size: int = 8,
-                 factors=None, memory_budget_bytes: Optional[int] = None,
+    def __init__(self, ctx, assignment, forest=None, dtype=np.float64,
+                 oos_cache_size: int = 8, factors=None,
+                 memory_budget_bytes: Optional[int] = None,
                  factor_scratch_dir: Optional[str] = None):
         self.ctx = ctx
         self.assignment = assignment
         self.forest = forest
         self.device = ctx.device
+        self.dtype = np.dtype(dtype)
+        if self.dtype not in _TORCH_DTYPE:
+            raise ValueError(f"engine dtype must be float64 or float32, got "
+                             f"{self.dtype}")
         self.total_leaves = int(ctx.total_leaves)
         self.memory_budget_bytes = None if memory_budget_bytes is None \
             else int(memory_budget_bytes)
         self._factor_scratch_dir = factor_scratch_dir
         self.gl = ctx.global_leaves()                        # (N, T) int32
         # ``factors=(q, w)`` injects precomputed weights (w may be None for
-        # a symmetric rule) instead of running the assignment again
+        # a symmetric rule) instead of running the assignment again; the
+        # assignment's float64 weights are rounded once to the dtype
         if factors is not None:
             q, w = factors
             self.q = self._tensor(q).contiguous()
             self.w = self.q if (assignment.symmetric or w is None) else \
                 self._tensor(w).contiguous()
         else:
-            self.q = assignment.query_weights(ctx.leaves).contiguous()
-            self.w = self.q if assignment.symmetric else \
-                assignment.reference_weights(ctx.leaves).contiguous()
+            self.q = self._tensor(
+                assignment.query_weights(ctx.leaves)).contiguous()
+            self.w = self.q if assignment.symmetric else self._tensor(
+                assignment.reference_weights(ctx.leaves)).contiguous()
 
-        # host CSR factors: int64 leaf ids and float64 weights copied back,
+        # host CSR factors: int64 leaf ids and the weights copied back,
         # whole or, under a budget, in row chunks
         gl_host = _HostRows(self.gl, np.int64)
         if self.memory_budget_bytes is None:
@@ -181,10 +202,10 @@ class ProximityEngine:
         the same CSR."""
         if self.memory_budget_bytes is None:
             return build_leaf_map(gl_host, weights.cpu().numpy(),
-                                  self.total_leaves)
+                                  self.total_leaves, self.dtype)
         return streamed_leaf_map(
-            gl_host, _HostRows(weights, np.float64), self.total_leaves,
-            row_chunk=self._factor_row_chunk(),
+            gl_host, _HostRows(weights, self.dtype), self.total_leaves,
+            self.dtype, row_chunk=self._factor_row_chunk(),
             memmap_threshold_bytes=self.memory_budget_bytes,
             scratch_dir=self._factor_scratch_dir)
 
@@ -211,6 +232,7 @@ class ProximityEngine:
         self.qs_cache_hits = 0
         self.qs_cache_misses = 0
         self._train_row_sums: Optional[torch.Tensor] = None
+        self.last_matmat_path: Optional[str] = None   # 'sharded' | 'segment'
         # reference bucket tables S = Wᵀ V on the device, LRU of key ->
         # (keepalive V | None, S); bounded in entries and in bytes
         self._ref_cache: "OrderedDict[object, tuple]" = OrderedDict()
@@ -228,8 +250,17 @@ class ProximityEngine:
     def n_ref(self) -> int:
         return int(self.gl.shape[0])
 
-    def _tensor(self, a, dtype=torch.float64) -> torch.Tensor:
-        return torch.as_tensor(a, dtype=dtype, device=self.device)
+    @property
+    def _torch_dtype(self) -> torch.dtype:
+        """The engine's ``dtype`` as a torch dtype."""
+        return _TORCH_DTYPE[self.dtype]
+
+    def _tensor(self, a, dtype=None) -> torch.Tensor:
+        """``a`` on the engine's device, in ``dtype`` (the engine's by
+        default)."""
+        return torch.as_tensor(a, device=self.device,
+                               dtype=self._torch_dtype if dtype is None
+                               else dtype)
 
     # ---------------- query-state management ----------------
     @staticmethod
@@ -257,8 +288,8 @@ class ProximityEngine:
         leaves = self.forest.apply(X)
         return self._qs_cache_put(key, QueryState(
             self.ctx.global_leaves(leaves),
-            self.assignment.oos_query_weights(leaves).contiguous(),
-            self.total_leaves))
+            self._tensor(self.assignment.oos_query_weights(leaves))
+            .contiguous(), self.total_leaves))
 
     def _qs_cache_get(self, key: str) -> Optional[QueryState]:
         with self._qs_lock:
@@ -305,17 +336,26 @@ class ProximityEngine:
         out = self._product(self.query_state(X), Vt, key=key, keepalive=V)
         if normalized:
             d = self.row_sums(X=X)
-            out = out / d.clamp_min(np.finfo(np.float64).tiny)[:, None]
+            out = out / d.clamp_min(np.finfo(self.dtype).tiny)[:, None]
         return out
 
     def _product(self, qs: QueryState, V: torch.Tensor, key=None,
                  keepalive=None) -> torch.Tensor:
+        """P V for the query rows of ``qs``: on the training rows, over the
+        cards of ``torch_ops.default_mesh()`` when it has any and they
+        split the rows evenly (:meth:`_sharded_product`); else the segment
+        product on the engine's device."""
+        mesh = self._mesh() if qs is self._train_state else None
+        if mesh is not None:
+            self.last_matmat_path = "sharded"
+            return self._sharded_product(mesh, V)
+        self.last_matmat_path = "segment"
         cb = self._col_chunk(V.shape[1])
         if cb < V.shape[1]:
             # bound the (total_leaves, C) bucket table under the budget:
             # the columns of P V are independent, so V goes a few at a
             # time (uncached tables)
-            out = torch.empty((qs.n, V.shape[1]), dtype=torch.float64,
+            out = torch.empty((qs.n, V.shape[1]), dtype=self._torch_dtype,
                               device=self.device)
             for j0 in range(0, V.shape[1], cb):
                 Vj = V[:, j0:j0 + cb].contiguous()
@@ -326,6 +366,39 @@ class ProximityEngine:
         return torch_ops.swlc_gather(qs.gl, qs.q,
                                      self._ref_table(V, key, keepalive),
                                      self._t_chunk(V.shape[1]))
+
+    def _mesh(self):
+        """The device grid of the sharded product, or None: the
+        reference's gate — a ``default_mesh()`` whose data axis divides the
+        training rows — and a grid of the engine's device type (a CPU
+        engine stays on the CPU)."""
+        mesh = torch_ops.default_mesh()
+        if mesh is None or self.n_ref % mesh.shape[0] \
+                or mesh[0, 0].type != self.device.type:
+            return None
+        return mesh
+
+    def _sharded_product(self, mesh, V: torch.Tensor) -> torch.Tensor:
+        """P V on the training rows over ``mesh``, as the reference's
+        engine computes it: the budget's column blocks (``_col_chunk``)
+        first, then within each the ``auto_c_chunk`` blocks that bound a
+        shard's (rows / data, T, c) intermediate.  The bucket tables are not
+        cached (the reference's sharded path caches none), and a budget
+        bounds only the column blocks: each shard still holds a whole
+        (total_leaves, c) table."""
+        n_dev = mesh.shape[0]
+        T = self.gl.shape[1]
+        out = []
+        cb = self._col_chunk(V.shape[1])
+        for b0 in range(0, V.shape[1], cb):
+            Vb = V[:, b0:b0 + cb]
+            c = torch_ops.auto_c_chunk(self.n_ref // n_dev, T, Vb.shape[1])
+            c = Vb.shape[1] if c is None else c
+            out += [torch_ops.sharded_swlc_matmat(
+                mesh, self.gl, self.q, self.w,
+                Vb[:, j0:j0 + c].contiguous(), self.total_leaves)
+                for j0 in range(0, Vb.shape[1], c)]
+        return torch.cat(out, dim=1)
 
     def _col_chunk(self, n_cols: int) -> int:
         """Columns of V a product's bucket table holds at once: the dense
@@ -378,7 +451,7 @@ class ProximityEngine:
         vector of the proximity graph); cached for the training state."""
         if X is None and self._train_row_sums is not None:
             return self._train_row_sums
-        ones = torch.ones((self.n_ref, 1), dtype=torch.float64,
+        ones = torch.ones((self.n_ref, 1), dtype=self._torch_dtype,
                           device=self.device)
         # a content key: OOS row sums cost the query-side gather only
         out = self._product(self.query_state(X), ones,
@@ -394,7 +467,7 @@ class ProximityEngine:
             matvec=lambda v: self.matvec(np.ravel(v)).cpu().numpy(),
             matmat=lambda V: self.matmat(V).cpu().numpy(),
             rmatvec=lambda v: np.asarray(self.W @ (self.Q.T @ v)),
-            dtype=np.float64)
+            dtype=self.dtype)
 
     # ---------------- kernel views ----------------
     def full_kernel(self, diagonal: Optional[float] = None) -> sp.csr_matrix:
@@ -495,12 +568,12 @@ class ProximityEngine:
                 qs.Q, class_ids, n_classes, self._budget_block(block)))
         onehot = None
         if class_ids is not None:
-            onehot = torch.zeros((self.n_ref, n_classes), dtype=torch.float64,
-                                 device=self.device)
+            onehot = torch.zeros((self.n_ref, n_classes),
+                                 dtype=self._torch_dtype, device=self.device)
             onehot[torch.arange(self.n_ref, device=self.device),
                    self._tensor(class_ids, torch.int64)] = 1.0
         shape = (qs.n,) if onehot is None else (qs.n, n_classes)
-        out = torch.zeros(shape, dtype=torch.float64, device=self.device)
+        out = torch.zeros(shape, dtype=self._torch_dtype, device=self.device)
         for i0, i1, B in self._dense_blocks(qs, block):
             B2 = B * B
             # _SUM_ROWS rows a reduction, at rows aligned to its multiples
@@ -587,12 +660,14 @@ class ProximityEngine:
         by ascending column (so the card and the host pick the same
         columns): dense device blocks reduced by ``torch.topk``, or host
         CSR for large train-side jobs on a CPU engine.  Returns (indices
-        int64, values float64)."""
+        int64, values float64: a float32 engine's values widened, as the
+        reference's scipy engine returns them)."""
         qs = self.query_state(X)
         if self._sparse_train(X):
             idx, val = topk_neighbors(qs.Q, self.W, k,
                                       block=self._budget_block(block))
-            return self._tensor(idx, torch.int64), self._tensor(val)
+            return (self._tensor(idx, torch.int64),
+                    self._tensor(val, torch.float64))
         kk = min(k, self.n_ref)
         idx = torch.zeros((qs.n, k), dtype=torch.int64, device=self.device)
         val = torch.zeros((qs.n, k), dtype=torch.float64, device=self.device)
@@ -605,8 +680,8 @@ class ProximityEngine:
             step = self._op_row_chunk(block)
             for r0 in range(0, rows.numel(), step):
                 r = rows[r0:r0 + step]
-                idx[r, :kk], val[r, :kk] = _topk_rows_exact(
-                    self._block(qs.gl[r], qs.q[r]), kk)
+                ix, v = _topk_rows_exact(self._block(qs.gl[r], qs.q[r]), kk)
+                idx[r, :kk], val[r, :kk] = ix, v.to(val.dtype)
         return idx, val
 
     # ---------------- accounting ----------------
@@ -733,7 +808,7 @@ class PrefixProximityEngine(ProximityEngine):
             trunc, X=pctx.X, y=pctx.y,
             leaves=self._contract(pctx.global_leaves())[1])
         super().__init__(ctx_k, get_assignment(parent.assignment.name, ctx_k),
-                         forest=trunc,
+                         forest=trunc, dtype=parent.dtype,
                          memory_budget_bytes=parent.memory_budget_bytes,
                          factor_scratch_dir=parent._factor_scratch_dir)
 
@@ -754,5 +829,5 @@ class PrefixProximityEngine(ProximityEngine):
             return hit
         gl, leaves = self._contract(self.parent.query_state(X).gl)
         return self._qs_cache_put(key, QueryState(
-            gl, self.assignment.oos_query_weights(leaves).contiguous(),
-            self.total_leaves))
+            gl, self._tensor(self.assignment.oos_query_weights(leaves))
+            .contiguous(), self.total_leaves))

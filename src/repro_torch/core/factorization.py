@@ -125,13 +125,14 @@ def factor_digest(gl, q, w=None) -> str:
     (global leaves, query weights, reference weights when asymmetric), so
     two engines with equal digests produce identical kernels.  Tensors are
     hashed as host copies in the reference's dtypes (``gl`` int64, ``q`` and
-    ``w`` float64), so the digest of a port engine equals the reference's
-    for the same factors.
+    ``w`` in their own float64 or float32, as the engine's ``dtype``), so
+    the digest of a port engine equals the reference's for the same
+    factors.
     """
     h = hashlib.sha256()
-    parts = ((gl, np.int64), (q, np.float64))
+    parts = ((gl, np.int64), (q, None))
     if w is not None and w is not q:
-        parts += ((w, np.float64),)
+        parts += ((w, None),)
     for a, dt in parts:
         if isinstance(a, torch.Tensor):
             a = a.detach().cpu().numpy()

@@ -18,9 +18,10 @@ two structural digests:
 
 Both digests hash host copies in the reference's dtypes, so they are the
 reference's strings for the same forest.  The config is written under the
-reference's field names, with the values the reference reads as its own
-defaults (``dtype`` float64, the scipy engine, ``auto`` routing and
-trainer), the kernel's own out-of-core settings (``scratch_dir``,
+reference's field names: the kernel's ``dtype`` by name (``"float64"`` or
+``"float32"``; the factors are stored in it), the values the reference reads
+as its own defaults (the scipy engine, ``auto`` routing and trainer), the
+kernel's own out-of-core settings (``scratch_dir``,
 ``memory_budget_bytes``) and no ``device``, so the reference's
 ``ForestKernel.load`` accepts a port archive.
 
@@ -35,13 +36,13 @@ kernels.  The reference's engine and routing backends are ignored (they
 agree to 1e-8 and the port has one of each), its trainer backend maps to
 ``"auto"``, and an archive's out-of-core settings (``scratch_dir``,
 ``memory_budget_bytes``) are honoured: the loaded kernel keeps them and
-builds its engine under them, with the same answers.  An archive
-whose ``dtype`` is not float64 is refused: float32 factors are not ported.
+builds its engine under them, with the same answers.  A float32 archive
+loads as a float32 kernel.
 
 Failure modes all raise :class:`SnapshotError` with a reason: unknown
 format, version mismatch, missing arrays, checksum mismatch (corruption),
-digest mismatch (a rebuild that no longer reproduces the saved engine), or
-a float32 archive.
+factors in another dtype than the config's, or digest mismatch (a rebuild
+that no longer reproduces the saved engine).
 """
 from __future__ import annotations
 
@@ -100,10 +101,11 @@ def _checksum(a: np.ndarray) -> str:
 
 def _reference_config(fk) -> dict:
     """The kernel's config as the reference's ``ForestKernel(**config)``
-    takes it: the shared fields, then the reference's own settings at the
-    values that match the port (float64), and the out-of-core settings."""
+    takes it: the shared fields, the dtype's name, then the reference's own
+    settings at the values that match the port, and the out-of-core
+    settings."""
     config = {k: getattr(fk, k) for k in _SHARED_CONFIG}
-    config.update(dtype="float64", engine_backend="scipy",
+    config.update(dtype=np.dtype(fk.dtype).name, engine_backend="scipy",
                   routing_backend="auto", tree_backend="auto",
                   n_jobs=fk.n_jobs, scratch_dir=fk.scratch_dir,
                   memory_budget_bytes=fk.memory_budget_bytes)
@@ -224,12 +226,13 @@ def load_kernel(path, device="cuda"):
 
     config = manifest["config"]
     dtype = np.dtype(config.get("dtype", "float64"))
-    if dtype != np.float64:
-        raise SnapshotError(
-            f"{path}: a {dtype.name} kernel; the port computes in float64 "
-            "only (float32 factors are not ported)")
+    for name in ("factor_q_data", "factor_w_data", "factor_q", "factor_w"):
+        if name in arrays and arrays[name].dtype != dtype:
+            raise SnapshotError(f"{path}: {name} is {arrays[name].dtype}, "
+                                f"but the kernel's dtype is {dtype.name}")
     fk = ForestKernel(**{k: config[k] for k in _SHARED_CONFIG
                          if k in config},
+                      dtype=dtype.type,
                       n_jobs=config.get("n_jobs", 0), device=device,
                       scratch_dir=config.get("scratch_dir"),
                       memory_budget_bytes=config.get("memory_budget_bytes"))
@@ -274,7 +277,7 @@ def load_kernel(path, device="cuda"):
                 arrays["factor_w_data"], arrays["factor_w_indices"],
                 arrays["factor_w_indptr"], ctx.leaf_offset, T)
     fk.engine = ProximityEngine(ctx, fk.assignment, forest=forest,
-                                factors=(q, w),
+                                dtype=fk.dtype, factors=(q, w),
                                 memory_budget_bytes=fk.memory_budget_bytes,
                                 factor_scratch_dir=fk.scratch_dir)
     if factor_digest(fk.engine.gl, fk.engine.q,

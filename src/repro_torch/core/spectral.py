@@ -69,7 +69,11 @@ def kernel_eigs(Q: sp.csr_matrix, k: int = 10, seed: int = 0):
     """Top eigenpairs of the (uncentered) Gram kernel P = QQᵀ from Q's SVD:
     (eigvals = s², eigvecs = U), descending; never forms P."""
     rng = np.random.default_rng(seed)
-    u, s, _ = svds(Q.astype(np.float64), k=k,
+    # the reference's ``asfptype``: float32 and float64 maps keep their
+    # type, others go to float64
+    if Q.dtype not in (np.float32, np.float64):
+        Q = Q.astype(np.float64)
+    u, s, _ = svds(Q, k=k,
                    v0=rng.normal(size=min(Q.shape)))
     order = np.argsort(-s)
     return (s ** 2)[order], u[:, order]

@@ -2,7 +2,9 @@
 version for CPU tensors, and nothing else.
 
 Replaces ``repro/kernels/block_prox/ops.py::block_prox``, which downgrades
-float64 to float32 for the TPU; here the engine's float64 is kept.
+float64 to float32 for the TPU; here the kernel runs in the factors' own
+type, float64 or float32 (an engine with ``dtype=np.float32``: the TPU
+kernel's precision).
 
 The kernel has two forms with the same bits.  Given a :class:`LeafIndex`
 (the reference side grouped by leaf: each leaf's member columns in
@@ -32,7 +34,7 @@ __all__ = ["LeafIndex", "build_leaf_index", "leaf_density", "leaf_plan",
 # multiple of the widest tile; the index keeps a member offset per (leaf,
 # range), so its size grows with the leaves, not with leaves x columns.
 MAX_RANGES = 16
-TILE_MAX = 1024          # columns of the widest shared-memory tile
+TILE_MAX = 1024          # float64 columns of the widest shared-memory tile
 TILE_MIN = 128
 ROWS = 8                 # query rows (warps) per block, as in the source
 # Above this share of the reference columns met by one (query row, tree),
@@ -54,7 +56,7 @@ class LeafIndex:
 
     offs: torch.Tensor        # (n_leaves, n_ranges + 1) int32
     col: torch.Tensor         # (nnz,) int32
-    w: torch.Tensor           # (nnz,) float64
+    w: torch.Tensor           # (nnz,) the factors' float64 or float32
     n_ref: int
     n_trees: int
     range_w: int
@@ -89,11 +91,12 @@ def build_leaf_index(gl_w: torch.Tensor, w: torch.Tensor,
     """Group the reference factors ``gl_w``/``w`` (Nw, T) by leaf.
 
     ``gl_w`` holds global leaf ids below ``n_leaves`` (each tree's leaves a
-    disjoint range, as the engine's are).  Torch ops on the factors'
-    device, and one host read: the member count.
+    disjoint range, as the engine's are).  ``w`` is float64 or float32,
+    and the index keeps its type.  Torch ops on the factors' device, and
+    one host read: the member count.
     """
     require(gl_w, torch.int32, "gl_w")
-    require(w, torch.float64, "w", gl_w.device)
+    require(w, _value_type(w, "w"), "w", gl_w.device)
     if gl_w.dim() != 2 or w.shape != gl_w.shape:
         raise ValueError(f"need gl_w/w (Nw, T); got {tuple(gl_w.shape)}, "
                          f"{tuple(w.shape)}")
@@ -132,16 +135,19 @@ def leaf_density(gl_w: torch.Tensor, w: torch.Tensor, n_leaves: int) -> float:
     return float((m * m).sum()) / total / nw if total else 0.0
 
 
-def leaf_plan(n_trees: int, smem_limit: int) -> Tuple[int, int]:
+def leaf_plan(n_trees: int, smem_limit: int,
+              elem: int = 8) -> Tuple[int, int]:
     """(tile columns, dynamic shared bytes) of a launch over ``n_trees``
-    trees: ``ROWS`` rows of float64 tile plus three int32 cursors per (row,
-    tree).  The widest tile, from ``TILE_MAX`` halving down to
-    ``TILE_MIN``, that fits ``smem_limit``; raises when none does."""
+    trees with ``elem``-byte values (8 for float64, 4 for float32):
+    ``ROWS`` rows of tile plus three int32 cursors per (row, tree).  The
+    widest tile, from the ``TILE_MAX`` float64 columns' bytes (so twice the
+    columns in float32) halving down to ``TILE_MIN`` columns, that fits
+    ``smem_limit``; raises when none does."""
     state = ROWS * n_trees * 12
-    tile = TILE_MAX
-    while tile > TILE_MIN and ROWS * tile * 8 + state > smem_limit:
+    tile = TILE_MAX * 8 // elem
+    while tile > TILE_MIN and ROWS * tile * elem + state > smem_limit:
         tile //= 2
-    smem = ROWS * tile * 8 + state
+    smem = ROWS * tile * elem + state
     if smem > smem_limit:
         raise ValueError(f"block_prox: {n_trees} trees need {smem} bytes of "
                          f"shared memory, more than the card's {smem_limit}")
@@ -150,21 +156,38 @@ def leaf_plan(n_trees: int, smem_limit: int) -> Tuple[int, int]:
 
 _LIB: Optional[ctypes.CDLL] = None
 _SMEM: Dict[int, int] = {}
+# each value type's (leaf form, dense form) entry points of the source
+_ENTRY = {torch.float64: ("block_prox_leaf", "block_prox_dense"),
+          torch.float32: ("block_prox_leaf_f32", "block_prox_dense_f32")}
+
+
+def _value_type(t, name: str) -> torch.dtype:
+    """The value type of the factor tensor ``t``: float64 or float32, else
+    raise."""
+    dt = getattr(t, "dtype", None)
+    if not isinstance(t, torch.Tensor) or dt not in _ENTRY:
+        raise TypeError(f"{name} must be a torch.float64 or torch.float32 "
+                        f"tensor, got {dt if dt is not None else type(t)}")
+    return dt
 
 
 def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = _build.load("block_prox")
-        lib.block_prox_leaf.argtypes = [ctypes.c_void_p] * 2 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p] + [
-            ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.block_prox_leaf.restype = ctypes.c_int
-        lib.block_prox_dense.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_void_p]
-        lib.block_prox_dense.restype = ctypes.c_int
+        for leaf, dense in _ENTRY.values():
+            fn = getattr(lib, leaf)
+            fn.argtypes = [ctypes.c_void_p] * 2 + [
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p] + [
+                ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, dense)
+            fn.argtypes = [ctypes.c_void_p] * 5 + [
+                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -180,18 +203,22 @@ def _smem_limit(dev: torch.device) -> int:
 def block_prox(gl_q: torch.Tensor, q: torch.Tensor, gl_w: torch.Tensor,
                w: torch.Tensor,
                index: Optional[LeafIndex] = None) -> torch.Tensor:
-    """(Nq, Nw) float64 block P[i,j] = Σ_t q[i,t]·w[j,t]·1[gl_q[i,t] ==
-    gl_w[j,t]] for int32 leaf ids (Nq, T), (Nw, T) and float64 weights of
-    the same shapes, all on one device.
+    """(Nq, Nw) block P[i,j] = Σ_t q[i,t]·w[j,t]·1[gl_q[i,t] == gl_w[j,t]]
+    for int32 leaf ids (Nq, T), (Nw, T) and weights of the same shapes,
+    all on one device.  The weights (and ``index.w``) are all float64 or
+    all float32, and the block is in their type; a mix raises.
 
     CPU tensors take the plain version (``index`` unused); CUDA tensors
-    launch the kernel (counted in ``block_prox.launches``): in the
-    leaf-collision form on ``index``, a :class:`LeafIndex` of ``(gl_w,
-    w)``, or in the dense form without one.  A failed launch raises.
+    launch the kernel's instantiation for that type (counted in
+    ``block_prox.launches`` for float64, ``block_prox.launches_f32`` for
+    float32): in the leaf-collision form on ``index``, a
+    :class:`LeafIndex` of ``(gl_w, w)``, or in the dense form without one.
+    A failed launch raises.
     """
     dev = gl_q.device
-    for t, dt, name in ((gl_q, torch.int32, "gl_q"), (q, torch.float64, "q"),
-                        (gl_w, torch.int32, "gl_w"), (w, torch.float64, "w")):
+    vt = _value_type(q, "q")
+    for t, dt, name in ((gl_q, torch.int32, "gl_q"), (q, vt, "q"),
+                        (gl_w, torch.int32, "gl_w"), (w, vt, "w")):
         require(t, dt, name, dev)
     if gl_q.dim() != 2 or gl_w.dim() != 2 or q.shape != gl_q.shape \
             or w.shape != gl_w.shape or gl_q.shape[1] != gl_w.shape[1]:
@@ -209,28 +236,35 @@ def block_prox(gl_q: torch.Tensor, q: torch.Tensor, gl_w: torch.Tensor,
         raise ValueError(f"index of {index.n_ref} x {index.n_trees} on "
                          f"{index.device} does not fit gl_w {(nw, T)} on "
                          f"{dev}")
+    if index is not None:
+        require(index.w, vt, "index.w")
     if T == 0:
-        return torch.zeros((nq, nw), dtype=torch.float64, device=dev)
+        return torch.zeros((nq, nw), dtype=vt, device=dev)
     gl_q, q = gl_q.contiguous(), q.contiguous()
-    out = torch.empty((nq, nw), dtype=torch.float64, device=dev)
+    out = torch.empty((nq, nw), dtype=vt, device=dev)
     lib = _lib()
+    leaf_fn, dense_fn = (getattr(lib, n) for n in _ENTRY[vt])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if index is None:
             gl_w, w = gl_w.contiguous(), w.contiguous()
-            err = lib.block_prox_dense(
+            err = dense_fn(
                 gl_q.data_ptr(), q.data_ptr(), gl_w.data_ptr(), w.data_ptr(),
                 out.data_ptr(), nq, nw, T, stream)
         else:
-            tile, smem = leaf_plan(T, _smem_limit(dev))
-            err = lib.block_prox_leaf(
+            tile, smem = leaf_plan(T, _smem_limit(dev), out.element_size())
+            err = leaf_fn(
                 gl_q.data_ptr(), q.data_ptr(), nq, T, index.offs.data_ptr(),
                 index.n_leaves, index.n_ranges, index.range_w,
                 index.col.data_ptr(), index.w.data_ptr(), out.data_ptr(), nw,
                 tile, smem, stream)
     _build.check(lib, err, "block_prox launch")
-    block_prox.launches += 1
+    if vt == torch.float64:
+        block_prox.launches += 1
+    else:
+        block_prox.launches_f32 += 1
     return out
 
 
 block_prox.launches = 0
+block_prox.launches_f32 = 0

@@ -16,7 +16,8 @@ __all__ = ["block_prox_ref"]
 def block_prox_ref(gl_q: torch.Tensor, q: torch.Tensor, gl_w: torch.Tensor,
                    w: torch.Tensor, t_chunk: int = 8,
                    budget: int = 1 << 25) -> torch.Tensor:
-    """P[i,j] = Σ_t q[i,t]·w[j,t]·1[gl_q[i,t] == gl_w[j,t]], (Nq, Nw)."""
+    """P[i,j] = Σ_t q[i,t]·w[j,t]·1[gl_q[i,t] == gl_w[j,t]], (Nq, Nw) in
+    the weights' type (float64 or float32), summed in that type."""
     nq, T = gl_q.shape
     nw = gl_w.shape[0]
     out = torch.zeros((nq, nw), dtype=q.dtype, device=q.device)

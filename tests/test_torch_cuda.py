@@ -276,6 +276,182 @@ def test_block_prox_kernel_fma_order(dev):
     assert np.array_equal(got.view(np.int64), want.view(np.int64))
 
 
+
+# ------------------------------------------------ K2 in float32
+
+def _k2_check_f32(gl_q, q, gl_w, w, index=None):
+    """K2's float32 instantiation: the leaf-collision form (on ``index``,
+    or on an index of global ids built here) within 1e-5 x max|P| of the
+    plain float32 version (which sums products in chunks, not by fma), the
+    same bits on a second launch and in the dense form; counted in
+    ``launches_f32`` and not in the float64 count."""
+    if index is None:
+        gl_q, gl_w, n_leaves = _global(gl_q, gl_w)
+        index = build_leaf_index(gl_w, w, n_leaves)
+    assert index.w.dtype == torch.float32
+    n64, n32 = block_prox.launches, block_prox.launches_f32
+    got = block_prox(gl_q, q, gl_w, w, index=index)
+    assert got.dtype == torch.float32
+    want = block_prox_ref(gl_q, q, gl_w, w)
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+    assert torch.equal(block_prox(gl_q, q, gl_w, w, index=index), got)
+    assert torch.equal(block_prox(gl_q, q, gl_w, w), got)
+    torch.cuda.synchronize()
+    assert block_prox.launches_f32 == n32 + 3 and block_prox.launches == n64
+    return got
+
+
+@pytest.mark.parametrize("nq,nw,T", [(1, 1, 1), (63, 65, 15), (64, 64, 16),
+                                     (130, 1000, 33), (700, 129, 100),
+                                     (37, 40_000, 12), (20, 300, 700),
+                                     (3, 50, 2000)])
+def test_block_prox_kernel_float32_forms(dev, nq, nw, T):
+    """Ragged tiles, several column ranges, and enough trees that the
+    cursors shrink the (float32, twice as wide) shared tile."""
+    rng = np.random.default_rng(nq * nw + T)
+    as_t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=dev)  # noqa
+    gl_q = as_t(rng.integers(0, 9, (nq, T)), torch.int32)
+    gl_w = as_t(rng.integers(0, 9, (nw, T)), torch.int32)
+    q = as_t(rng.random((nq, T)) * (rng.random((nq, T)) < 0.5),
+             torch.float32)
+    w = as_t(rng.random((nw, T)) * (rng.random((nw, T)) < 0.8),
+             torch.float32)
+    _k2_check_f32(gl_q, q, gl_w, w)
+
+
+def _round32(x):
+    """A rational ``x`` rounded once to the nearest float32 (ties to an
+    even significand)."""
+    from fractions import Fraction
+    f = np.float32(float(x))          # within an ulp of the answer
+    cands = [np.nextafter(f, np.float32(-np.inf)), f,
+             np.nextafter(f, np.float32(np.inf))]
+    err = [abs(Fraction(float(c)) - x) for c in cands]
+    best = min(err)
+    near = [c for c, e in zip(cands, err) if e == best]
+    if len(near) > 1:
+        near = [c for c in near if not np.array([c]).view(np.uint32)[0] & 1]
+    return near[0]
+
+
+def test_block_prox_kernel_float32_fma_order(dev):
+    """In float32 too each P[i,j] is fmaf(q, w, acc), one rounding, over
+    the colliding trees in ascending order from 0, bit for bit, in both
+    forms."""
+    from fractions import Fraction
+    rng = np.random.default_rng(14)
+    nq, nw, T = 16, 300, 30
+    gl_q = rng.integers(0, 3, (nq, T)).astype(np.int32)
+    gl_w = rng.integers(0, 3, (nw, T)).astype(np.int32)
+    q = (rng.normal(size=(nq, T)) * (rng.random((nq, T)) < 0.7)).astype(
+        np.float32)
+    w = (rng.normal(size=(nw, T)) * 1e3).astype(np.float32)
+    t = [torch.as_tensor(a, device=dev) for a in (gl_q, q, gl_w, w)]
+    dense = block_prox(*t).cpu().numpy()
+    gq, gw, n_leaves = _global(t[0], t[2])
+    leaf = block_prox(gq, t[1], gw, t[3], index=build_leaf_index(
+        gw, t[3], n_leaves)).cpu().numpy()
+    want = np.zeros((nq, nw), np.float32)
+    for i in range(nq):
+        for j in range(nw):
+            acc = np.float32(0)
+            for k in np.flatnonzero(gl_q[i] == gl_w[j]):
+                acc = _round32(Fraction(float(q[i, k])) * Fraction(
+                    float(w[j, k])) + Fraction(float(acc)))
+            want[i, j] = acc
+    assert np.array_equal(dense.view(np.uint32), want.view(np.uint32))
+    assert np.array_equal(leaf.view(np.uint32), want.view(np.uint32))
+
+
+def test_block_prox_kernel_refuses_mixed_types(dev):
+    rng = np.random.default_rng(15)
+    as_t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=dev)  # noqa
+    gl_q = as_t(rng.integers(0, 3, (4, 5)), torch.int32)
+    gl_w = as_t(rng.integers(0, 3, (9, 5)), torch.int32)
+    q32 = as_t(rng.random((4, 5)), torch.float32)
+    w32 = as_t(rng.random((9, 5)), torch.float32)
+    n64, n32 = block_prox.launches, block_prox.launches_f32
+    with pytest.raises(TypeError):
+        block_prox(gl_q, q32, gl_w, w32.double())
+    with pytest.raises(TypeError):
+        block_prox(gl_q, q32.double(), gl_w, w32)
+    gq, gw, n_leaves = _global(gl_q, gl_w)
+    index64 = build_leaf_index(gw, w32.double(), n_leaves)
+    with pytest.raises(TypeError, match="index.w"):
+        block_prox(gq, q32, gw, w32, index=index64)
+    assert (block_prox.launches, block_prox.launches_f32) == (n64, n32)
+
+
+def test_float32_engine_on_the_card(dev):
+    """``ForestKernel(dtype=np.float32)`` on the card: its factors are the
+    float64 card factors rounded once and equal the CPU float32 kernel's;
+    its ops within 1e-5 of the largest value of the CPU float32 engine's,
+    in the same dtypes; K2 runs its float32 instantiation."""
+    from repro_torch.core.api import ForestKernel
+    from repro_torch.data.synthetic import gaussian_classes, train_test_split
+    X, y = gaussian_classes(3000, d=8, n_classes=4, seed=6)
+    Xtr, ytr, Xte, _ = train_test_split(X, y, test_frac=0.2, seed=1)
+    kw = dict(kernel_method="gap", n_trees=12, seed=3)
+    g32 = ForestKernel(device="cuda", dtype=np.float32, **kw).fit(Xtr, ytr)
+    c32 = ForestKernel(device="cpu", dtype=np.float32, **kw).fit(Xtr, ytr)
+    g64 = ForestKernel(device="cuda", **kw)
+    g64.forest = g32.forest
+    g64.build_kernel_cache()
+    assert torch.equal(g64.engine.q.float(), g32.engine.q)
+    assert torch.equal(g32.engine.q.cpu(), c32.engine.q)
+    assert torch.equal(g32.engine.w.cpu(), c32.engine.w)
+    n32 = block_prox.launches_f32
+    pairs = [(g32.engine.predict(ytr, 4, X=Xte), c32.engine.predict(
+                 ytr, 4, X=Xte)),
+             (g32.row_sums(), c32.row_sums()),
+             (g32.kernel_block(np.arange(100)), c32.kernel_block(
+                 np.arange(100))),
+             (g32.kernel_block(None, X_rows=Xte), c32.kernel_block(
+                 None, X_rows=Xte)),
+             (g32.engine.squared_row_sums(ytr, 4, X=Xte),
+              c32.engine.squared_row_sums(ytr, 4, X=Xte)),
+             (g32.topk(5, X=Xte)[1], c32.topk(5, X=Xte)[1])]
+    torch.cuda.synchronize()
+    assert block_prox.launches_f32 > n32
+    for a, b in pairs:
+        assert a.dtype == b.dtype
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("C", [7, 64])
+def test_sharded_matmat_on_a_grid_of_one_card(dev, C):
+    """``sharded_swlc_matmat`` on a (2, 2) grid of cuda:0 within 1e-12 of
+    the segment product (float64); the engine reports the segment path on
+    one card, and the sharded one with the grid as its mesh."""
+    from repro_torch.core import torch_ops
+    from repro_torch.core.api import ForestKernel
+    from repro_torch.data.synthetic import gaussian_classes
+    X, y = gaussian_classes(2000, d=8, n_classes=3, seed=2)
+    fk = ForestKernel(kernel_method="gap", n_trees=12, seed=0,
+                      device="cuda").fit(X, y)
+    e = fk.engine
+    V = torch.as_tensor(np.random.default_rng(C).normal(size=(e.n_ref, C)),
+                        device=dev)
+    want = e.matmat(V)
+    assert e.last_matmat_path == "segment"
+    mesh = np.empty((2, 2), dtype=object)
+    mesh[:] = [[dev, dev], [dev, dev]]
+    got = torch_ops.sharded_swlc_matmat(mesh, e.gl, e.q, e.w, V,
+                                        e.total_leaves)
+    assert got.device == want.device
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+    grid = np.empty((2, 1), dtype=object)
+    grid[:] = [[dev], [dev]]
+    real = torch_ops.default_mesh
+    try:
+        torch_ops.default_mesh = lambda: grid
+        torch.testing.assert_close(e.matmat(V), want, rtol=0, atol=1e-12)
+        assert e.last_matmat_path == "sharded"
+    finally:
+        torch_ops.default_mesh = real
+
 def test_forest_kernel_runs_on_the_card(dev):
     """The slice on the card equals the slice on the CPU: same leaves and
     factors bit for bit, ops within 1e-8."""

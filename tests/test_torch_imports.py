@@ -9,9 +9,11 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-# chip_smoke.py and the bf16 contract it shares with the LM tests
+# chip_smoke.py and the bf16 and float32 contracts it shares with the
+# port's tests
 FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                     ROOT / "tests" / "_lm_contract.py"]
+                                     ROOT / "tests" / "_lm_contract.py",
+                                     ROOT / "tests" / "_f32_contract.py"]
 
 
 def _module_names():

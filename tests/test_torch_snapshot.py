@@ -12,7 +12,8 @@ Also, across the packages (one archive format):
   ``ForestKernel.load(path, engine_backend="scipy")``, with the same
   agreement;
 - the context and factor digests are the same strings in both packages;
-- a float32 archive is refused (float32 factors are not ported).
+- an archive whose config says float32 over float64 factors is refused
+  (float32 archives themselves load: ``tests/test_torch_float32.py``).
 
 Everything runs on the CPU (``device="cpu"``).
 """
@@ -279,6 +280,8 @@ def test_digests_equal_across_packages(snap_setup, ref_archives, method):
 
 
 def test_float32_archive_refused(ref_archives, tmp_path):
+    """A config that says float32 over float64 factors is refused, naming
+    both types."""
     _, path = ref_archives["gap"]
 
     def to_f32(arrays):
