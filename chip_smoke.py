@@ -105,8 +105,8 @@
    width and depth, B=2 x 1,280, five steps with remat, timed, its peak
    memory and its FLOP bound, one warm step profiled; its widths at depth 2
    against the CPU in bf16; (c) the ``train_lm_e2e`` twin's ``train_loop``
-   in a scratch directory, 30 steps uninterrupted and then failing at
-   step 20 and resumed (losses within 1e-4 of the uninterrupted run's);
+   in a scratch directory, 20 steps uninterrupted and then failing at
+   step 15 and resumed (losses within 1e-4 of the uninterrupted run's);
    (d) int8 gradient compression on the card against the CPU, bit for
    bit;
 12. drives float32 factors, counted: (a) phase 1's forest as a
@@ -123,11 +123,20 @@
    the engine's sharded product with ``default_mesh`` set to grids (1, 1),
    (2, 1), (1, 2) and (2, 2) of cuda:0, at 7 and 64 columns, within
    1e-12 of the segment product (one card's ``default_mesh()`` is None, so
-   the engine takes the segment path there), timed.
+   the engine takes the segment path there), timed;
+13. drives the LM's sharding layer (``distributed/logical.py``,
+   ``distributed/sharding.py``, ``launch/mesh.py``, DTensor states in
+   ``train/``), counted (no kernel of the port runs there): (a)
+   hymba_1p5b at its published width and depth, B=2 x 1,280 with remat,
+   two ``train_loop`` steps on one device and on a one-rank NCCL mesh
+   ``make_local_mesh(1, 1)``, timed with peak memory, the runs' losses,
+   grad norms and every leaf of params, m and v held equal bit for bit
+   (one rank runs the one device's local kernels); (b) each run's
+   parameter checkpoint restored into the other layout, bit for bit.
 
 Last it prints one ``{"kernels": [...]}`` line (launches on the main, GBT,
-applications, serving, out-of-core, LM proximity-head, LM training and
-float32 paths; K2's float32 instantiation has its own entry), errors,
+applications, serving, out-of-core, LM proximity-head, LM training,
+float32 and LM sharding paths; K2's float32 instantiation has its own entry), errors,
 kernel / plain / library times and the least time the card could take),
 the card's name
 and power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -205,9 +214,12 @@ TRAIN_STEPS, TRAIN_LR, TRAIN_TOP_OPS = 5, 3e-4, 8
 # relative, each leaf's largest gap over its max|g| (the CPU's own bf16
 # against float32 gradients differ by up to 0.034 of a leaf's max there)
 TRAIN_BF16_LOSS, TRAIN_BF16_NORM, TRAIN_BF16_LEAF = 1e-3, 1e-2, 0.1
-# (c): the twin's model and batch, 30 of its 300 steps (a step takes
+# (c): the twin's model and batch, 20 of its 300 steps (a step takes
 # ~0.5 s on the card, host-bound, and a checkpoint ~1 GB)
-E2E_STEPS, E2E_SAVE, E2E_FAIL = 30, 15, 20
+E2E_STEPS, E2E_SAVE, E2E_FAIL = 20, 10, 15
+# phase 13: the LM's sharding layer; (a) and (b) at phase 11 (b)'s size
+MESH_STEPS = 2                # (a): train_loop steps, each way
+MESH_CHUNK = 640              # (a): attention chunk dividing 1,280
 TREE_FIELDS = ("feature", "threshold", "left", "right", "leaf_id", "value",
                "n_node_samples")
 
@@ -1428,6 +1440,145 @@ def phase11(torch, dev):
           f"({time.perf_counter() - t:.1f} s)", flush=True)
     del gd
     print(f"phase 11 wall: {time.perf_counter() - t11:.1f} s", flush=True)
+
+
+class _StepClock:
+    """Collects ``train_loop``'s step times (its monitor's heartbeats)."""
+
+    def __init__(self):
+        self.secs = []
+
+    def beat(self, host, step_duration):
+        self.secs.append(step_duration)
+
+
+def phase13(torch, dev):
+    """The LM's sharding layer on the card (no kernel of the port runs
+    here): (a) hymba_1p5b at its published width and depth, B=2 x 1,280
+    with remat, two steps of ``train_loop`` on one device and on a one-rank
+    NCCL mesh (1, 1) (DTensor leaves and batch), timed with peak memory,
+    the two runs' metrics and every leaf compared; (b) each run's
+    parameters checkpointed and restored into the other layout (the mesh
+    run's into one device, the one-device run's onto the mesh), bit for
+    bit.  The whole state (params, m and v: 19.69 GB) would take ~75 s
+    more of disk writes; m and v go through the same code.  A two-rank
+    world on one card is not run: torch 2.11's DTensor cannot place the
+    sequence-parallel residual's matmul (PERF.md, Findings)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train.checkpoint import (restore_checkpoint,
+                                              save_checkpoint)
+    from repro_torch.models.lm import abstract_params
+    t13 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    mesh = make_local_mesh(1, 1, device=dev.type)
+    kw = dict(steps=MESH_STEPS, global_batch=TRAIN_B, seq_len=TRAIN_S,
+              ckpt_dir="", device=str(dev), lr=TRAIN_LR, log_every=10 ** 9,
+              attn_chunk=MESH_CHUNK)
+
+    def leaves(state):
+        """Every leaf of params (and of m and v when ``state`` has them) as
+        a plain tensor (a one-rank mesh's shard is the whole leaf)."""
+        out = list(state["params"].parameters())
+        if "opt" in state:
+            out += list(state["opt"]["m"].parameters()) \
+                + list(state["opt"]["v"].parameters())
+        return [p.detach().to_local() if hasattr(p, "to_local")
+                else p.detach() for p in out]
+
+    def bits(x, y):
+        return x.shape == y.shape and torch.equal(x.view(torch.int32),
+                                                  y.view(torch.int32))
+
+    runs, states = {}, {}
+    with tempfile.TemporaryDirectory(prefix="mesh13_") as scratch:
+        for name, m in (("one device", None), ("mesh (1, 1)", mesh)):
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            clock = _StepClock()
+            t = time.perf_counter()
+            state, hist = train_loop(cfg, mesh=m, monitor=clock, **kw)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t
+            peak = torch.cuda.max_memory_allocated() - base
+            ck = os.path.join(scratch, "mesh" if m is not None else "one")
+            t = time.perf_counter()
+            save_checkpoint(ck, MESH_STEPS, {"params": state["params"]})
+            runs[name] = dict(hist=hist, secs=clock.secs, total=total,
+                              peak=peak, save=time.perf_counter() - t, ck=ck)
+            states[name] = state
+            del state
+            check(all(np.isfinite([h["loss"], h["grad_norm"]]).all()
+                      for h in hist), f"phase 13 {name}: non-finite metrics")
+        one, sh = states["one device"], states["mesh (1, 1)"]
+        check(all(hasattr(p, "placements")
+                  for p in sh["params"].parameters()),
+              "phase 13: the mesh run's leaves are not DTensors")
+        a, b = leaves(one), leaves(sh)
+        n_p = sum(1 for _ in one["params"].parameters())
+        gaps = [float((x - y).abs().max()) for x, y in zip(a[:n_p], b[:n_p])]
+        equal = all(bits(x, y) for x, y in zip(a, b))
+        del a, b
+        h1, h2 = runs["one device"]["hist"], runs["mesh (1, 1)"]["hist"]
+        e_loss = max(abs(x["loss"] - y["loss"]) for x, y in zip(h1, h2))
+        e_norm = max(abs(x["grad_norm"] - y["grad_norm"])
+                     for x, y in zip(h1, h2))
+        # one rank runs the same local kernels as one device: bit for bit
+        check(equal and e_loss == 0 and e_norm == 0,
+              f"phase 13 (a): mesh (1, 1) against one device: loss gap "
+              f"{e_loss:.3e}, grad norm gap {e_norm:.3e}, largest parameter "
+              f"gap {max(gaps):.3e}, every leaf of params, m and v equal bit "
+              f"for bit: {equal}")
+        for name, r in runs.items():
+            losses = ", ".join(f"{h['loss']:.6f}" for h in r["hist"])
+            norms = ", ".join(f"{h['grad_norm']:.6f}" for h in r["hist"])
+            ms = ", ".join(f"{x * 1e3:.1f}" for x in r["secs"])
+            print(f"phase 13 (a) {LM_ARCH} {name}, B={TRAIN_B} x "
+                  f"S={TRAIN_S}, remat, {MESH_STEPS} train_loop steps: "
+                  f"losses {losses}; grad norms {norms}; ms a step {ms}"
+                  f" (first, then warm); train_loop {r['total']:.1f} s with "
+                  f"its set-up; peak device memory {r['peak'] / 2 ** 30:.3f} "
+                  f"GiB above the run's start; parameter checkpoint save "
+                  f"{r['save']:.1f} s", flush=True)
+        print(f"phase 13 (a) mesh (1, 1) against one device: largest loss "
+              f"gap {e_loss:.3e}, grad norm gap {e_norm:.3e}, parameter gap "
+              f"{max(gaps):.3e}; every leaf of params, m and v equal bit for "
+              f"bit: {equal}", flush=True)
+
+        # (b) each run's parameters checkpoint into the other layout
+        t = time.perf_counter()
+        got = restore_checkpoint(runs["mesh (1, 1)"]["ck"],
+                                 {"params": abstract_params(cfg)}, device=dev)
+        check(not any(hasattr(p, "placements")
+                      for p in got["params"].parameters()),
+              "phase 13 (b): restored leaves should be plain tensors")
+        check(all(bits(x, y) for x, y in
+                  zip(leaves(got), leaves({"params": sh["params"]}))),
+              "phase 13 (b): the mesh run's checkpoint on one device differs")
+        t_one = time.perf_counter() - t
+        del got
+        t = time.perf_counter()
+        got = restore_checkpoint(runs["one device"]["ck"],
+                                 {"params": sh["params"]})
+        check(all(hasattr(p, "placements")
+                  for p in got["params"].parameters()),
+              "phase 13 (b): leaves restored onto the mesh are not DTensors")
+        check(all(bits(x, y) for x, y in
+                  zip(leaves(got), leaves({"params": one["params"]}))),
+              "phase 13 (b): the one-device checkpoint on the mesh differs")
+        t_mesh = time.perf_counter() - t
+        del got, one, sh, states
+        gb = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in
+                 os.walk(runs["one device"]["ck"]) for f in fs) / 1e9
+        print(f"phase 13 (b) parameter checkpoints ({gb:.2f} GB each): the "
+              f"mesh run's restored on one device {t_one:.1f} s, the "
+              f"one-device run's restored onto the mesh {t_mesh:.1f} s; every "
+              f"leaf equal bit for bit", flush=True)
+
+    print(f"phase 13 wall: {time.perf_counter() - t13:.1f} s", flush=True)
 
 
 def phase12(torch, dev, fk, Xtr, ytr, Xte, snap_bytes64):
@@ -3074,6 +3225,14 @@ def main() -> int:
     # ---- phase 12: float32 factors and the sharded product ----
     k2f32 = phase12(torch, dev, fk, Xtr, ytr, Xte, snap_bytes)
 
+    # ---- phase 13: the LM's sharding layer (no kernel of the port) ----
+    reset_counts()
+    phase13(torch, dev)
+    torch.cuda.synchronize()
+    mesh_launches = read_counts()
+    print(f"phase 13 launches K1/K2/K3/K4: "
+          f"{'/'.join(str(v) for v in mesh_launches.values())}", flush=True)
+
     # ---- bounds, from this run's shapes and data ----
     # K1 reads X once, each real node's 16-byte record once (not the
     # padding up to M) and writes the (n, T) int32 leaves
@@ -3110,7 +3269,8 @@ def main() -> int:
     def total(name):
         return launches[name] + gbt_launches[name] + app_launches[name] \
             + serve_launches[name] + ooc_launches[name] + lm_launches[name] \
-            + train_launches[name] + k2f32["launches"][name]
+            + train_launches[name] + k2f32["launches"][name] \
+            + mesh_launches[name]
     kernels = [
         {"name": "leaf_route", "route": "cuda",
          "source": "src/repro_torch/kernels/leaf_route/csrc/leaf_route.cu",
@@ -3182,11 +3342,12 @@ def main() -> int:
           f"same bits)")
     print("launches (main path + GBT path + applications path + serving "
           "path + out-of-core path + LM proximity head + LM training + "
-          "float32 path): " + ", ".join(
+          "float32 path + LM sharding): " + ", ".join(
               f"{k} {launches[k]} + {gbt_launches[k]} + {app_launches[k]} "
               f"+ {serve_launches[k]} + {ooc_launches[k]} + "
               f"{lm_launches[k]} + {train_launches[k]} + "
-              f"{k2f32['launches'][k]}" for k in wrappers)
+              f"{k2f32['launches'][k]} + {mesh_launches[k]}"
+              for k in wrappers)
           + f"; block_prox_f32 {k2f32['launches_f32']} (float32 path)")
     print(f"wall: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -25,7 +25,7 @@ from scipy.sparse.linalg import LinearOperator
 from ..forest.trees import prefix_leaf_map
 
 __all__ = ["factor_digest", "full_kernel", "kernel_block",
-           "kernel_matvec_operator", "topk_neighbors",
+           "kernel_matvec_operator", "proximity_predict", "topk_neighbors",
            "prefix_leaf_contraction", "naive_swlc", "streamed_leaf_map"]
 
 
@@ -177,6 +177,36 @@ def kernel_matvec_operator(Q: sp.csr_matrix, W: sp.csr_matrix) -> LinearOperator
 
     return LinearOperator((n_q, n_w), matvec=mv, rmatvec=rmv,
                           matmat=lambda V: Q @ (W.T @ V), dtype=Q.dtype)
+
+
+def proximity_predict(Qq: sp.csr_matrix, W: sp.csr_matrix, y: np.ndarray,
+                      n_classes: Optional[int] = None,
+                      exclude_self: bool = False) -> np.ndarray:
+    """Proximity-weighted prediction (paper Appendix I) on the host CSR
+    maps.
+
+    classification: ŷ(x) = argmax_c Σ_j P(x, j) 1[y_j = c]  (the (Nq, C)
+    class scores are returned)
+    regression:     ŷ(x) = Σ_j P(x, j) y_j / Σ_j P(x, j)
+
+    Computed as (Qq Wᵀ) Y without materializing P: Qq @ (Wᵀ Y), where Y is
+    the (N, C) one-hot label matrix (or (N, 1) target column and a ones
+    column).
+    """
+    if n_classes is not None:
+        Y = np.zeros((len(y), n_classes))
+        Y[np.arange(len(y)), y.astype(np.int64)] = 1.0
+    else:
+        Y = np.stack([y.astype(np.float64), np.ones(len(y))], axis=1)
+    S = W.T @ Y                       # (L, C) — one pass over W's nnz
+    out = Qq @ S                      # (Nq, C) — one pass over Qq's nnz
+    if exclude_self:
+        # remove each query's own contribution (diagonal of P against itself)
+        diag = np.asarray(Qq.multiply(W).sum(axis=1)).ravel()
+        out -= diag[:, None] * Y
+    if n_classes is not None:
+        return out
+    return out[:, 0] / np.maximum(out[:, 1], 1e-300)
 
 
 def topk_neighbors(Q: sp.csr_matrix, W: sp.csr_matrix, k: int,

@@ -60,8 +60,8 @@ from ..kernels.histogram import ops as hops
 from ..obs.metrics import global_registry
 from .trees import Tree
 
-__all__ = ["TreeParams", "Binner", "fit_tree_binned", "fit_forest_binned",
-           "resolve_tree_backend"]
+__all__ = ["TreeParams", "Binner", "fit_tree", "fit_tree_binned",
+           "fit_forest_binned", "resolve_tree_backend"]
 
 _HIST_BUDGET = 1 << 26  # max float64 elements per histogram chunk (~512MB)
 _TILE_ELEMS = 1 << 20   # max elements per transient index tile
@@ -170,6 +170,12 @@ class Binner:
         return self
 
     @property
+    def edges(self) -> List[np.ndarray]:
+        """Per-feature edge arrays (views into ``edges_flat``)."""
+        return [self.edges_flat[self.edge_offset[f]:self.edge_offset[f + 1]]
+                for f in range(len(self.edge_count))]
+
+    @property
     def code_dtype(self) -> np.dtype:
         """Dtype of the emitted bin codes (uint8 iff they fit a byte)."""
         return np.dtype(np.uint8 if self.n_bins <= 256 else np.int16)
@@ -215,6 +221,13 @@ class Binner:
         mm.flush()
         return mm
 
+    def threshold(self, f: int, b: int) -> float:
+        """The raw-unit split threshold of feature ``f`` at bin ``b``."""
+        c = int(self.edge_count[f])
+        if not c:
+            return np.inf
+        return float(self.edges_flat[self.edge_offset[f] + min(b, c - 1)])
+
     def thresholds(self, f: np.ndarray, b: np.ndarray) -> np.ndarray:
         """Raw-unit split thresholds of (feature, bin) arrays."""
         f = np.asarray(f, dtype=np.int64)
@@ -255,6 +268,16 @@ def _node_values(y: np.ndarray, w: np.ndarray, params: TreeParams) -> np.ndarray
         return np.bincount(y, weights=w, minlength=params.n_classes).astype(np.float32)
     tot = w.sum()
     return np.array([tot, (w * y).sum() / max(tot, 1e-12)], dtype=np.float32)
+
+
+def fit_tree(X: np.ndarray, y: np.ndarray, w: np.ndarray, params: TreeParams,
+             rng: np.random.Generator, binner: Optional[Binner] = None,
+             device="cuda") -> Tree:
+    """Bin ``X`` (with a new :class:`Binner` drawn from ``rng`` unless one
+    is given) and grow one tree on the codes (:func:`fit_tree_binned`)."""
+    binner = binner or Binner(X, params.n_bins, rng)
+    Xb = binner.transform(X)
+    return fit_tree_binned(Xb, y, w, params, rng, binner, device=device)
 
 
 def fit_tree_binned(Xb: np.ndarray, y: np.ndarray, w: np.ndarray,

@@ -27,7 +27,8 @@ import torch
 from ..device import resolve_device
 from ..kernels.leaf_route.ops import route, route_tables
 
-__all__ = ["Tree", "TreeArrays", "route_tree", "route_forest_batched",
+__all__ = ["Tree", "TreeArrays", "route_tree", "route_forest_numpy",
+           "route_forest_batched",
            "stack_leaf_values", "pack_trees", "unpack_trees", "node_depths",
            "truncate_tree", "prefix_leaf_map"]
 
@@ -87,6 +88,10 @@ class Tree:
         """(n_leaves, value_dim) prediction payloads ordered by leaf_id."""
         return self.value[self.leaf_nodes()]
 
+    def leaf_counts(self) -> np.ndarray:
+        """(n_leaves,) training-sample counts per leaf, ordered by leaf_id."""
+        return self.n_node_samples[self.leaf_nodes()].astype(np.int64)
+
 
 def route_tree(tree: Tree, X: np.ndarray) -> np.ndarray:
     """Route samples through one tree (the per-tree oracle).  Returns
@@ -107,6 +112,15 @@ def route_tree(tree: Tree, X: np.ndarray) -> np.ndarray:
         nxt = np.where(go_left, left[node], right[node])
         node = np.where(internal, nxt, node).astype(np.int32)
     return tree.leaf_id[node].astype(np.int32)
+
+
+def route_forest_numpy(trees: Sequence[Tree], X: np.ndarray) -> np.ndarray:
+    """Leaf ids for every (sample, tree): an (N, T) int32 array, one
+    :func:`route_tree` per tree (the routing oracle)."""
+    out = np.empty((X.shape[0], len(trees)), dtype=np.int32)
+    for t, tree in enumerate(trees):
+        out[:, t] = route_tree(tree, X)
+    return out
 
 
 def route_forest_batched(ta: "TreeArrays", X, device="cuda") -> torch.Tensor:

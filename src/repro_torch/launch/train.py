@@ -3,43 +3,66 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite_8b \\
       --reduced --steps 200 --batch 16 --seq 256 --ckpt-dir CKPT \\
       [--device cpu]
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch granite_8b --reduced --data-par 2 --model-par 2 [--device cpu]
 
-One device: the card unless ``--device cpu``.  Features exercised end to
-end: deterministic skip-ahead data (``TokenPipeline.batch_at``), atomic
-checkpoints in the reference's format, resume from the latest one,
-WSD/cosine schedules, int8 gradient compression, straggler monitoring.
-A data- or model-parallel mesh (``--data-par``, ``--model-par`` other than
-1) comes with the multi-GPU slice (ROADMAP Queue 1) and raises here.
+One device (the card unless ``--device cpu``) when ``--data-par`` and
+``--model-par`` are 1 and no world was started; otherwise a ``(data,
+model)`` mesh over the world's ranks (NCCL on cards, gloo with ``--device
+cpu``), whose size must be ``data x model``.  Features exercised end to
+end: sharded state, deterministic skip-ahead data
+(``TokenPipeline.batch_at``), atomic checkpoints in the reference's
+format, resume from the latest one (onto any grid), WSD/cosine schedules,
+int8 gradient compression, straggler monitoring.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..configs.base import get_config
 from ..data.tokens import TokenPipeline
 from ..device import resolve_device
+from ..distributed.logical import axis_env, distribute_full, placements_for
+from ..distributed.sharding import batch_specs
+from ..launch.mesh import make_local_mesh
 from ..train.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from ..train.fault_tolerance import HeartbeatMonitor
 from ..train.optimizer import AdamWConfig
-from ..train.steps import init_train_state, make_train_step
+from ..train.steps import (distribute_train_state, init_train_state,
+                           make_train_step)
 
-__all__ = ["train_loop", "main"]
+__all__ = ["train_loop", "launch_mesh", "main"]
 
 
 def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
-               ckpt_dir: str, device="cuda", save_every: int = 50,
+               ckpt_dir: str, device="cuda", mesh=None, save_every: int = 50,
                lr: float = 3e-4, compress_grads: bool = False,
                attn_chunk: int = 128, log_every: int = 10,
                monitor: HeartbeatMonitor = None, fail_at: int = None):
     """Train ``cfg`` from seed 0 (or from the latest checkpoint under
     ``ckpt_dir``) up to ``steps``; returns the state and each step's
     metrics as floats.  ``fail_at`` raises before that step (a simulated
-    failure)."""
-    dev = resolve_device(device)
+    failure).
+
+    With a ``mesh`` (a ``DeviceMesh`` named ``("data", "model")``, from
+    ``launch.mesh.make_local_mesh``) every rank draws the full state from
+    seed 0 and keeps its shards (``param_specs``), each step's global
+    batch is placed by ``batch_specs``, and the step runs under
+    ``axis_env(mesh)``; the device is the mesh's (``device`` is then not
+    read).  A resumed state takes the same placements."""
+    if mesh is not None:
+        dev = torch.device(mesh.device_type)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+    else:
+        dev = resolve_device(device)
     opt_cfg = AdamWConfig(lr=lr, total_steps=steps,
                           warmup_steps=min(50, steps // 10 + 1),
                           schedule=cfg.lr_schedule)
@@ -50,8 +73,12 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
 
     start = latest_step(ckpt_dir) if ckpt_dir else None
     state = init_train_state(cfg, 0, device=dev)
+    if mesh is not None:
+        distribute_train_state(state, mesh)
+        bspec = batch_specs(mesh, with_image=cfg.family == "vlm")
     if start is not None:
-        state = restore_checkpoint(ckpt_dir, state, device=dev)
+        state = restore_checkpoint(ckpt_dir, state,
+                                   device=None if mesh is not None else dev)
         print(f"[train] resumed from step {start}", flush=True)
     start = start or 0
     step_fn = make_train_step(cfg, opt_cfg, attn_chunk=attn_chunk,
@@ -64,7 +91,13 @@ def train_loop(cfg, *, steps: int, global_batch: int, seq_len: int,
         t0 = time.time()
         batch = {k: torch.as_tensor(v, device=dev)
                  for k, v in pipe.batch_at(step).items()}
-        state, metrics = step_fn(state, batch)
+        if mesh is not None:
+            batch = {k: distribute_full(v, mesh,
+                                        placements_for(bspec[k], mesh))
+                     for k, v in batch.items()}
+        with axis_env(mesh) if mesh is not None \
+                else contextlib.nullcontext():
+            state, metrics = step_fn(state, batch)
         metrics = {k: float(v) for k, v in metrics.items()}
         dt = time.time() - t0
         if monitor is not None:
@@ -100,11 +133,6 @@ def main(argv=None):
     ap.add_argument("--model-par", type=int, default=1)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.data_par != 1 or args.model_par != 1:
-        raise NotImplementedError(
-            "a data- or model-parallel mesh is not ported yet: it comes "
-            "with the multi-GPU slice (ROADMAP Queue 1, 'Multi-GPU, with "
-            "the sharding layer'); run with --data-par 1 --model-par 1")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -115,8 +143,30 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     return train_loop(cfg, steps=args.steps, global_batch=args.batch,
                       seq_len=args.seq, ckpt_dir=args.ckpt_dir,
-                      device=args.device, save_every=args.save_every,
+                      device=args.device,
+                      mesh=launch_mesh(args.data_par, args.model_par,
+                                       args.device),
+                      save_every=args.save_every,
                       lr=args.lr, compress_grads=args.compress_grads)
+
+
+def launch_mesh(data: int, model: int, device):
+    """The ``(data, model)`` mesh of a launch, or None for one device
+    (both 1 and no world).  Under ``torchrun`` (``WORLD_SIZE`` set) this
+    starts the world from its environment: NCCL on cards, gloo for the
+    CPU.  The world's size must be ``data x model``."""
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    if not dist.is_initialized() and data * model == 1:
+        return None
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if data * model != world:
+        raise ValueError(f"--data-par {data} x --model-par {model} must "
+                         f"equal the world size, {world}")
+    return make_local_mesh(data, model, device=device)
 
 
 if __name__ == "__main__":

@@ -11,9 +11,14 @@ expressed as a predicate on (q_pos, k_pos) evaluated per chunk.
 ``block_causal=True`` skips KV chunks that are entirely in the masked
 future of the current query chunk.
 
-The reference pads heads to a multiple of the tensor-parallel width when
-``tp > 1``; on one device that is a no-op, and it comes back with the
-multi-GPU slice.
+Under a mesh (``distributed.logical.axis_env``) the activations are
+DTensors: q/k/v are hinted head-parallel over the model axis, and when the
+head count does not divide the model axis (``tp``) the heads are padded
+with zero heads first (``perf_env(head_pad=...)``, on by default), as in
+the reference; padded query heads project through zero ``wo`` rows, so
+the padding is exact.  The positions, rope tables, masks and running
+softmax state made here become replicated DTensors on the input's mesh.
+With no mesh, or ``tp == 1``, none of this runs.
 """
 from __future__ import annotations
 
@@ -22,6 +27,8 @@ from typing import Optional, Union
 
 import torch
 
+from ..distributed.logical import (get_opt, replicate_like, shard_hint,
+                                   tp_size_of)
 from .layers import Initializer, apply_rope, rotary_embedding
 
 __all__ = ["init_attn", "attn_forward", "attn_decode", "mask_fn"]
@@ -90,6 +97,15 @@ def _out_proj(p, o, cd):
     return y
 
 
+def _pad_seq(t: torch.Tensor, S: int) -> torch.Tensor:
+    """``t`` (B, S_in, ...) zero-padded along dim 1 to ``S``: a
+    concatenation with zeros, which torch 2.11's DTensor places on a
+    batch-sharded ``t`` (its ``F.pad`` rule fails there)."""
+    zeros = torch.zeros((t.shape[0], S - t.shape[1]) + tuple(t.shape[2:]),
+                        dtype=t.dtype, device=t.device)
+    return torch.cat([t, replicate_like(zeros, t)], dim=1)
+
+
 def attn_forward(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
                  head_dim: int, rope_theta: float, window: int = 0,
                  prefix_len: int = 0, chunk: int = 512,
@@ -104,19 +120,33 @@ def attn_forward(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     # pad the sequence to a chunk multiple; padded keys are masked out below
     S = (S_in + chunk - 1) // chunk * chunk
     if S != S_in:
-        pad = (0, 0, 0, 0, 0, S - S_in)
-        q, k, v = (torch.nn.functional.pad(t, pad) for t in (q, k, v))
+        q, k, v = (_pad_seq(t, S) for t in (q, k, v))
     pos = torch.arange(S, device=dev) if positions is None else positions
-    cos, sin = rotary_embedding(pos, head_dim, rope_theta)
+    cos, sin = (replicate_like(t, x)
+                for t in rotary_embedding(pos, head_dim, rope_theta))
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     group = n_heads // n_kv
     if group > 1:
         k = k.repeat_interleave(group, dim=2)        # (B, S, H, hd)
         v = v.repeat_interleave(group, dim=2)
+    # head padding: when H doesn't divide the model axis, pad with zero
+    # heads so attention still tensor-parallelizes.  Padded q-heads see
+    # all-zero keys (uniform softmax over junk) but project through zero
+    # wo rows — exact.
+    n_heads_c = n_heads
+    tp = tp_size_of()
+    if get_opt("head_pad") and tp > 1 and n_heads % tp != 0:
+        n_heads_c = (n_heads + tp - 1) // tp * tp
+        padh = (0, 0, 0, n_heads_c - n_heads)
+        q, k, v = (torch.nn.functional.pad(t, padh) for t in (q, k, v))
     q = q.transpose(1, 2)                            # (B, H, S, hd)
     k = k.transpose(1, 2)
     v = v.transpose(1, 2)
+    # anchor head-parallel layout (no-op when H doesn't divide the model axis)
+    q = shard_hint(q, "batch", "tp", None, None)
+    k = shard_hint(k, "batch", "tp", None, None)
+    v = shard_hint(v, "batch", "tp", None, None)
     scale = head_dim ** -0.5
 
     n_chunks = S // chunk
@@ -125,9 +155,10 @@ def attn_forward(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     for qi in range(n_chunks):
         q_blk = q[:, :, qi * chunk:(qi + 1) * chunk]
         q_pos = pos[qi * chunk:(qi + 1) * chunk]
-        m_run = torch.full((B, n_heads, chunk), NEG_INF, device=dev)
-        l_run = torch.zeros((B, n_heads, chunk), device=dev)
-        o_run = torch.zeros((B, n_heads, chunk, head_dim), device=dev)
+        m_run, l_run, o_run = (replicate_like(t, x) for t in (
+            torch.full((B, n_heads_c, chunk), NEG_INF, device=dev),
+            torch.zeros((B, n_heads_c, chunk), device=dev),
+            torch.zeros((B, n_heads_c, chunk, head_dim), device=dev)))
         n_kv_chunks = qi + 1 if (block_causal and prefix_len == 0) \
             else n_chunks
         for ci in range(n_kv_chunks):
@@ -138,7 +169,8 @@ def attn_forward(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
                            prefix_len=prefix_len,
                            window_dynamic=window_dynamic)
             mask &= valid_k[sl][None, :]
-            s = s.float().masked_fill(~mask[None, None], NEG_INF)
+            mask = replicate_like(~mask[None, None], x)
+            s = s.float().masked_fill(mask, NEG_INF)
             m_new = torch.maximum(m_run, s.amax(-1))
             alpha = torch.exp(m_run - m_new)
             prob = torch.exp(s - m_new[..., None])
@@ -149,7 +181,8 @@ def attn_forward(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
         outs.append((o_run / torch.clamp(l_run[..., None], min=1e-30)
                      ).to(cd))
     out = torch.cat(outs, dim=2)                     # (B, H, S, hd)
-    out = out.transpose(1, 2)[:, :S_in]              # (B, S_in, H, hd)
+    # drop padded heads (their wo rows are zero anyway) + padded positions
+    out = out.transpose(1, 2)[:, :S_in, :n_heads]    # (B, S_in, H, hd)
     return _out_proj(p, out, cd)
 
 

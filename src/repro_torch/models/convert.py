@@ -18,6 +18,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from ..distributed.logical import full_tensor
 from .lm import LM, Block
 
 __all__ = ["params_from_reference", "params_to_reference", "reference_path"]
@@ -56,12 +57,13 @@ def params_to_reference(params: LM) -> dict:
     """The reference's pytree of ``params`` (or of a module of its layout):
     nested dicts of float32 numpy arrays, the layers stacked on a leading
     ``L`` axis under the reference's leaf names.  The module carries its
-    depth, so no config is needed."""
+    depth, so no config is needed.  DTensor leaves are gathered whole (a
+    collective: every rank of their mesh calls this)."""
     tree: dict = {}
     stacks: dict = {}
     for name, p in params.named_parameters():
         path, layer = reference_path(name)
-        a = p.detach().cpu().numpy()
+        a = full_tensor(p.detach()).cpu().numpy()
         if layer is None:
             tree[path[0]] = a
         else:

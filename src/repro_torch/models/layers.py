@@ -4,13 +4,16 @@ Parameters live in ``PARAM_DTYPE`` (float32) and every use casts them to
 ``COMPUTE_DTYPE`` (bfloat16), as in the JAX package, so both compute the
 same thing from the same weights.  :class:`Initializer` draws leaves from
 an explicit ``torch.Generator``: the reference's distributions (normal
-scaled by 1/sqrt(fan_in), zeros, ones), not its values.
+scaled by 1/sqrt(fan_in), zeros, ones), not its values.  Without a
+generator it is abstract: every leaf is a ``meta`` tensor of the same
+shape and dtype, and nothing is allocated.
 """
 from __future__ import annotations
 
 import math
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 __all__ = ["Initializer", "rms_norm", "rotary_embedding", "apply_rope",
@@ -21,16 +24,20 @@ COMPUTE_DTYPE = torch.bfloat16
 
 
 class Initializer:
-    """Creates parameter tensors on ``device`` from ``generator``."""
+    """Creates parameter tensors on ``device`` from ``generator``; with no
+    generator, ``meta`` tensors (``abstract``)."""
 
-    def __init__(self, generator: torch.Generator, device: torch.device,
-                 scale: float = 0.02):
+    def __init__(self, generator: Optional[torch.Generator] = None,
+                 device: Optional[torch.device] = None, scale: float = 0.02):
         self.generator = generator
-        self.device = device
+        self.abstract = generator is None
+        self.device = torch.device("meta") if self.abstract else device
         self.scale = scale
 
     def normal(self, shape: Sequence[int], fan_in: Optional[int] = None,
                dtype=PARAM_DTYPE) -> torch.Tensor:
+        if self.abstract:
+            return torch.empty(tuple(shape), dtype=dtype, device="meta")
         std = self.scale if fan_in is None else 1.0 / math.sqrt(fan_in)
         t = torch.randn(tuple(shape), generator=self.generator,
                         device=self.device, dtype=dtype)
@@ -41,6 +48,13 @@ class Initializer:
 
     def ones(self, shape: Sequence[int], dtype=PARAM_DTYPE) -> torch.Tensor:
         return torch.ones(tuple(shape), device=self.device, dtype=dtype)
+
+    def const(self, value, dtype=PARAM_DTYPE) -> torch.Tensor:
+        """``value`` (array-like) as a leaf of ``dtype``."""
+        value = np.asarray(value)
+        if self.abstract:
+            return torch.empty(value.shape, dtype=dtype, device="meta")
+        return torch.as_tensor(value).to(device=self.device, dtype=dtype)
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,

@@ -26,13 +26,22 @@ frontend) are prepended to the token embeddings and the mask is prefix-LM.
 Audio (musicgen): token ids over the EnCodec codebook — the frontend is
 likewise a stub.
 
-The reference shards and pads the vocabulary, heads and experts when
-``tp > 1`` (``shard_hint``, ``tp_size_of``, ``get_opt``); on one device
-those are no-ops (``keep_padded_vocab`` among them), and they come back
-with the multi-GPU slice.
+Sharded: under ``distributed.logical.axis_env(mesh)`` with the leaves and
+the batch as DTensors (``distributed.sharding``), the same code runs
+under DTensor dispatch.  The residual stream is hinted batch- and
+sequence-parallel between blocks, the MLP's hidden and the logits
+tensor-parallel, and when the vocabulary does not divide the model axis
+(``tp``) the head is padded to a multiple of it, the padded logits masked
+to ``NEG_INF`` (``keep_padded_vocab`` keeps them for the loss, whose
+``logsumexp`` they do not change).  With no mesh or ``tp == 1`` the
+hints and paddings are no-ops.
+
+``abstract_params`` / ``abstract_cache`` give the same structures on the
+``meta`` device: shapes and dtypes, nothing allocated.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
@@ -41,13 +50,17 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from .attention import attn_decode, attn_forward, init_attn
+from ..distributed.logical import (captured_env, current_mesh, get_opt,
+                                   is_dtensor, replicate_like, replicated,
+                                   shard_hint, tp_size_of)
+from .attention import NEG_INF, attn_decode, attn_forward, init_attn
 from .layers import COMPUTE_DTYPE, Initializer, rms_norm, silu
 from .moe import init_moe, moe_forward
 from .ssm import init_ssm, ssm_decode, ssm_forward
 
-__all__ = ["LM", "Block", "init_params", "map_params", "forward",
-           "decode_step", "init_cache", "loss_fn"]
+__all__ = ["LM", "Block", "init_params", "abstract_params", "map_params",
+           "forward", "decode_step", "init_cache", "abstract_cache",
+           "loss_fn"]
 
 
 def _pdict(leaves: Dict[str, torch.Tensor]) -> nn.ParameterDict:
@@ -120,7 +133,16 @@ def init_params(cfg: ArchConfig, seed: Union[int, torch.Generator] = 0,
     dev = resolve_device(device)
     gen = seed if isinstance(seed, torch.Generator) else \
         torch.Generator(device=dev).manual_seed(int(seed))
-    ini = Initializer(gen, dev)
+    return _build_params(cfg, Initializer(gen, dev))
+
+
+def abstract_params(cfg: ArchConfig) -> LM:
+    """The parameters' shapes and dtypes as an :class:`LM` of ``meta``
+    tensors (qwen3_moe_235b's 235B included): nothing is allocated."""
+    return _build_params(cfg, Initializer(None))
+
+
+def _build_params(cfg: ArchConfig, ini: Initializer) -> LM:
     embed = ini.normal((cfg.vocab, cfg.d_model), fan_in=cfg.d_model)
     blocks = [Block(_init_block(ini, cfg)) for _ in range(cfg.n_layers)]
     final_norm = ini.ones((cfg.d_model,))
@@ -153,6 +175,7 @@ def map_params(params: LM, fn: Callable[[str, torch.Tensor], torch.Tensor]
 def _mlp(mp, h2, cd):
     g = silu(h2 @ mp["w_gate"].to(cd))
     u = h2 @ mp["w_up"].to(cd)
+    g = shard_hint(g, "batch", None, "tp")
     return (g * u) @ mp["w_down"].to(cd)
 
 
@@ -186,7 +209,8 @@ def _block_forward(cfg: ArchConfig, bp: Block, x: torch.Tensor,
         mix = 0.5 * (attn_out + s)
     x = x + mix
 
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = replicate_like(torch.zeros((), dtype=torch.float32,
+                                     device=x.device), x)
     if fam == "moe":
         h2 = rms_norm(x, bp.ln2, cfg.norm_eps)
         m, aux = moe_forward(bp.moe, h2, n_experts=cfg.n_experts,
@@ -196,43 +220,78 @@ def _block_forward(cfg: ArchConfig, bp: Block, x: torch.Tensor,
     elif fam in ("dense", "vlm", "audio", "hybrid"):
         h2 = rms_norm(x, bp.ln2, cfg.norm_eps)
         x = x + _mlp(bp.mlp, h2, x.dtype)
-    return x, aux
+    # sequence-parallel residual: the carries (what remat keeps) live
+    # S-sharded over the model axis between blocks
+    return shard_hint(x, "batch", "sp", None), aux
 
 
 def _embed(params: LM, cfg: ArchConfig, tokens, cd):
     tokens = torch.as_tensor(tokens, device=params.device).long()
-    return params.embed[tokens].to(cd) * (cfg.d_model ** 0.5)
+    if is_dtensor(tokens):
+        # the whole table on every rank (gathered, as FSDP gathers a leaf
+        # before use), so each rank looks up its own tokens locally; an
+        # embedding op, whose backward torch 2.11's DTensor can place for
+        # batch-sharded tokens (an index's it cannot)
+        emb = torch.nn.functional.embedding(tokens, replicated(params.embed))
+    else:
+        emb = params.embed[tokens]
+    return emb.to(cd) * (cfg.d_model ** 0.5)
+
+
+def _logits(params: LM, x, cd, keep_padded_vocab: bool):
+    """``x @ head`` with the vocab padded to a multiple of ``tp`` when it
+    does not divide (``head_pad``): padded entries are ``NEG_INF``, so
+    ``logsumexp`` and ``argmax`` are exact; the caller gets the sliced
+    view unless ``keep_padded_vocab``."""
+    head = params.head()
+    V = head.shape[1]
+    tp = tp_size_of()
+    if get_opt("head_pad") and tp > 1 and V % tp != 0:
+        V_pad = (V + tp - 1) // tp * tp
+        head = torch.nn.functional.pad(head, (0, V_pad - V))
+        logits = shard_hint(x @ head.to(cd), "batch", None, "tp")
+        pad = torch.arange(V_pad, device=x.device) >= V
+        logits = logits.masked_fill(replicate_like(pad, logits), NEG_INF)
+        return logits if keep_padded_vocab else logits[..., :V]
+    return shard_hint(x @ head.to(cd), "batch", None, "tp")
 
 
 def forward(params: LM, cfg: ArchConfig, tokens,
             image_embed: Optional[torch.Tensor] = None,
             block_causal: bool = False, attn_chunk: int = 512,
-            remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+            remat: bool = True, keep_padded_vocab: bool = False
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) int -> (logits (B, S, V), aux_loss).
 
     Differentiable in ``params`` when grad mode is on; ``remat`` then
     recomputes each block in the backward pass instead of keeping its
     activations (no effect without grad)."""
     cd = COMPUTE_DTYPE
-    x = _embed(params, cfg, tokens, cd)
+    x = shard_hint(_embed(params, cfg, tokens, cd), "batch", "sp", None)
     if cfg.family == "vlm":
         if image_embed is None:
             raise ValueError("vlm needs stub patch embeddings")
-        image_embed = torch.as_tensor(image_embed, device=x.device)
+        image_embed = replicate_like(
+            torch.as_tensor(image_embed, device=x.device), x)
         x = torch.cat([image_embed.to(cd), x], dim=1)
     glob = set(cfg.global_layers)
     recompute = remat and torch.is_grad_enabled()
+    ck = {}
+    if recompute and current_mesh() is not None:
+        # the recompute re-enters the forward's mesh and options
+        env = captured_env()
+        ck["context_fn"] = lambda: (contextlib.nullcontext(), env())
     auxs = []
     for l, bp in enumerate(params.layers):
         kw = dict(block_causal=block_causal, chunk=attn_chunk)
         if recompute:
             x, aux = checkpoint(_block_forward, cfg, bp, x, l in glob,
-                                use_reentrant=False, **kw)
+                                use_reentrant=False, **ck, **kw)
         else:
             x, aux = _block_forward(cfg, bp, x, l in glob, **kw)
         auxs.append(aux)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
-    logits = x @ params.head().to(cd)
+    logits = _logits(params, x, cd, keep_padded_vocab)
     if cfg.family == "vlm":
         logits = logits[:, image_embed.shape[1]:]
     return logits, torch.stack(auxs).mean()
@@ -243,11 +302,13 @@ def loss_fn(params: LM, cfg: ArchConfig, tokens, labels,
             aux_weight: float = 0.01, **kw) -> torch.Tensor:
     """Next-token cross-entropy + ``aux_weight`` x the MoE aux loss, the
     reference's training loss; ``kw`` goes to :func:`forward`."""
-    logits, aux = forward(params, cfg, tokens, image_embed=image_embed, **kw)
+    logits, aux = forward(params, cfg, tokens, image_embed=image_embed,
+                          keep_padded_vocab=True, **kw)
     logits = logits.float()
     labels = torch.as_tensor(labels, device=logits.device).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+    # kept (B, S, 1): a vocab-sharded gather's partial sum reduces there
+    ll = torch.gather(logits, -1, labels[..., None])
     return (logz - ll).mean() + aux_weight * aux
 
 
@@ -259,8 +320,17 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
     """Zero caches in the reference's layout.  Hymba keeps two stacked
     attention caches (SWA ring buffers + full-length global layers); the
     SSM state is float32 whatever ``dtype``."""
-    dev = resolve_device(device)
+    return _cache_struct(cfg, batch, seq_len, dtype, resolve_device(device))
 
+
+def abstract_cache(cfg: ArchConfig, batch: int, seq_len: int,
+                   dtype=COMPUTE_DTYPE) -> Dict[str, torch.Tensor]:
+    """:func:`init_cache`'s structure as ``meta`` tensors."""
+    return _cache_struct(cfg, batch, seq_len, dtype, torch.device("meta"))
+
+
+def _cache_struct(cfg: ArchConfig, batch: int, seq_len: int, dtype,
+                  dev: torch.device) -> Dict[str, torch.Tensor]:
     def mk(shape, dt):
         return torch.zeros(shape, dtype=dt, device=dev)
     c: Dict[str, torch.Tensor] = {}

@@ -25,9 +25,18 @@ order (ascending expert id, one at a time, in the compute dtype, starting
 from zero) instead of an ``index_add_``, whose atomics on the card would
 change the low bits from run to run.
 
-The reference pads experts to a multiple of the tensor-parallel width when
-``tp > 1``; on one device that is a no-op, and it comes back with the
-multi-GPU slice.
+Sharded (under ``distributed.logical.axis_env`` with DTensor leaves):
+when the expert count does not divide the model axis (``tp``), phantom
+experts with zero weights and zero router probability pad it to a
+multiple (``perf_env(expert_pad=...)``, on by default), as in the
+reference — not exact against the unpadded model, since each real
+expert's capacity C shrinks by E/E_pad.  The routing, the sort-based
+dispatch and the combine have no DTensor sharding rule (top-k, sort,
+searchsorted, scatter, gather); they run group-local on each rank's
+groups (``logical.group_local``: dim 0 over the batch axes, replicated
+over the model axis), so no collective crosses the data axis there, and
+the expert buffer between them is hinted (G→data, E→model) for the
+expert-parallel FFN.  With no mesh every step runs as one plain call.
 """
 from __future__ import annotations
 
@@ -35,6 +44,8 @@ from typing import Tuple
 
 import torch
 
+from ..distributed.logical import (get_opt, group_local, shard_hint,
+                                   tp_size_of)
 from .layers import Initializer, silu
 
 __all__ = ["init_moe", "moe_forward"]
@@ -50,38 +61,25 @@ def init_moe(ini: Initializer, d_model: int, n_experts: int,
     }
 
 
-def moe_forward(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
-                capacity_factor: float = 1.25
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out, aux_loss).  aux = load-balancing loss (Switch)."""
-    B, S, D = x.shape
-    cd = x.dtype
-    dev = x.device
-    N = B * S
-    E, k = n_experts, top_k
-    xf = x.reshape(N, D)
-
-    # the reference's jitted ``einsum(...).astype(float32)`` fuses the cast
-    # into the product: the router logits are never rounded to ``cd``
-    logits = xf.float() @ p["router"].to(cd).float()
-    probs = torch.softmax(logits, dim=-1)
+def _route(probs, k: int):
+    """Top-k experts, renormalized gates, and the one-hot of each row's
+    first choice (for the load-balance loss)."""
     gate_vals, expert_ids = torch.topk(probs, k, dim=-1)          # (N, k)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
+    first = torch.nn.functional.one_hot(expert_ids[:, 0],
+                                        probs.shape[-1]).float()
+    return gate_vals, expert_ids, first
 
-    # load-balance auxiliary loss (Switch-style)
-    density = torch.nn.functional.one_hot(expert_ids[:, 0], E).float() \
-        .mean(0)
-    router_mean = probs.mean(0)
-    aux = E * torch.sum(density * router_mean)
 
-    # ---- group-local sort-based dispatch ----
-    G = B if N % B == 0 else 1
-    Ng = N // G
-    C = int(Ng * k * capacity_factor / E) + 1
-    flat_e = expert_ids.reshape(G, Ng * k)
-    order = torch.argsort(flat_e, dim=-1, stable=True)
-    sorted_e = torch.gather(flat_e, 1, order)
+def _dispatch(xg, eg, gg, E: int, C: int, k: int):
+    """Group-local sort-based dispatch. xg: (G, Ng, D); eg/gg: (G, Ng*k).
+    Returns the (G, E, C, D) buffer and, per sorted (token, k) pair, its
+    slot, whether it was kept, its gate and each token's pair places."""
+    G, Ng, D = xg.shape
+    dev = xg.device
+    order = torch.argsort(eg, dim=-1, stable=True)
+    sorted_e = torch.gather(eg, 1, order)
     experts = torch.arange(E, device=dev).expand(G, E).contiguous()
     start = torch.searchsorted(sorted_e, experts, side="left")
     rank = torch.arange(Ng * k, device=dev) - torch.gather(start, 1,
@@ -90,33 +88,91 @@ def moe_forward(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     keep = rank < C
     slot = torch.where(keep, sorted_e * C + rank,
                        torch.full_like(rank, E * C))
-    xg = xf.reshape(G, Ng, D)
     # a dropped pair writes the spare last row, which is cut off
-    buf = torch.zeros((G, E * C + 1, D), dtype=cd, device=dev)
+    buf = torch.zeros((G, E * C + 1, D), dtype=xg.dtype, device=dev)
     buf.scatter_(1, slot[..., None].expand(G, Ng * k, D),
                  torch.gather(xg, 1, tok[..., None].expand(G, Ng * k, D)))
     buf = buf[:, :-1].reshape(G, E, C, D)
+    gates_s = torch.gather(gg, 1, order)
+    # each token's k pairs at their sorted places, ascending (= by expert)
+    inv = torch.argsort(order, dim=-1)
+    places = inv.reshape(G, Ng, k).sort(dim=-1).values.reshape(G, Ng * k)
+    return buf, slot, keep, gates_s, places
 
-    # ---- expert FFN, batched over experts ----
-    be = buf.transpose(0, 1).reshape(E, G * C, D)
-    h = silu(be @ p["w_gate"].to(cd)) * (be @ p["w_up"].to(cd))
-    out_buf = (h @ p["w_down"].to(cd)).reshape(E, G, C, D).transpose(0, 1)
 
-    # ---- gather + combine (group-local) ----
+def _combine(out_buf, slot, keep, gates_s, places, k: int):
+    """Gather each pair's expert output back and sum a token's ``k``
+    gate-weighted contributions in ascending expert order."""
+    G, E, C, D = out_buf.shape
+    cd = out_buf.dtype
+    Ng = slot.shape[1] // k
     flat = out_buf.reshape(G, E * C, D)
     gathered = torch.gather(
         flat, 1, torch.clamp(slot, max=E * C - 1)[..., None]
         .expand(G, Ng * k, D))
     gathered = torch.where(keep[..., None], gathered,
-                           torch.zeros((), dtype=cd, device=dev))
-    gates_s = torch.gather(gate_vals.reshape(G, Ng * k), 1, order)
+                           torch.zeros((), dtype=cd, device=flat.device))
     contrib = gathered * gates_s[..., None].to(cd)              # sorted order
-    # each token's k pairs at their sorted places, ascending (= by expert)
-    inv = torch.argsort(order, dim=-1)
-    places = inv.reshape(G, Ng, k).sort(dim=-1).values.reshape(G, Ng * k)
     per_tok = torch.gather(contrib, 1, places[..., None].expand(
         G, Ng * k, D)).reshape(G, Ng, k, D)
-    out = torch.zeros((G, Ng, D), dtype=cd, device=dev)
+    out = torch.zeros((G, Ng, D), dtype=cd, device=flat.device)
     for j in range(k):
         out = out + per_tok[:, :, j]
+    return out
+
+
+def moe_forward(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
+                capacity_factor: float = 1.25
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (out, aux_loss).  aux = load-balancing loss (Switch)."""
+    B, S, D = x.shape
+    cd = x.dtype
+    N = B * S
+    E, k = n_experts, top_k
+    xf = x.reshape(N, D)
+
+    # the reference's jitted ``einsum(...).astype(float32)`` fuses the cast
+    # into the product: the router logits are never rounded to ``cd``
+    logits = xf.float() @ p["router"].to(cd).float()
+    probs = torch.softmax(logits, dim=-1)
+
+    # expert padding: phantom experts (zero weights, zero probability —
+    # never selected) so the expert buffer still shards E over "model"
+    w_gate, w_up, w_down = p["w_gate"], p["w_up"], p["w_down"]
+    tp = tp_size_of()
+    if get_opt("expert_pad") and tp > 1 and E % tp != 0:
+        e_pad = (E + tp - 1) // tp * tp
+        probs = torch.nn.functional.pad(probs, (0, e_pad - E))
+        padw = (0, 0, 0, 0, 0, e_pad - E)
+        w_gate, w_up, w_down = (torch.nn.functional.pad(w, padw)
+                                for w in (w_gate, w_up, w_down))
+        E = e_pad
+    gate_vals, expert_ids, first = group_local(
+        lambda pr: _route(pr, k), probs)
+
+    # load-balance auxiliary loss (Switch-style)
+    density = first.mean(0)
+    router_mean = probs.mean(0)
+    aux = E * torch.sum(density * router_mean)
+
+    # ---- group-local sort-based dispatch ----
+    G = B if N % B == 0 else 1
+    Ng = N // G
+    C = int(Ng * k * capacity_factor / E) + 1
+    buf, slot, keep, gates_s, places = group_local(
+        lambda xg, eg, gg: _dispatch(xg, eg, gg, E, C, k),
+        xf.reshape(G, Ng, D), expert_ids.reshape(G, Ng * k),
+        gate_vals.reshape(G, Ng * k))
+    buf = shard_hint(buf, "batch", "tp", None, None)  # G->data, E->model
+
+    # ---- expert FFN, batched over experts ----
+    be = buf.transpose(0, 1).reshape(E, G * C, D)
+    h = silu(be @ w_gate.to(cd)) * (be @ w_up.to(cd))
+    h = shard_hint(h, "tp", "batch", None)
+    out_buf = (h @ w_down.to(cd)).reshape(E, G, C, D).transpose(0, 1)
+    out_buf = shard_hint(out_buf, "batch", "tp", None, None)
+
+    # ---- gather + combine (group-local) ----
+    out = group_local(lambda *a: _combine(*a, k), out_buf, slot, keep,
+                      gates_s, places)
     return out.reshape(B, S, D), aux

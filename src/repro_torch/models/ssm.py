@@ -9,6 +9,10 @@ product, then a batched GEMM), so no six-dimensional intermediate exists.
 
 Following mamba2, the short causal conv runs over the concatenated (x, B, C)
 channels, and the output is RMS-norm-gated by z before out-projection.
+
+Under a mesh the heads and ``d_inner`` are hinted tensor-parallel, as in
+the reference, and the chunk mask and the initial state become replicated
+DTensors on the input's mesh; with no mesh the hints are no-ops.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed.logical import group_local, replicate_like, shard_hint
 from .layers import Initializer, rms_norm, silu
 
 __all__ = ["init_ssm", "ssm_forward", "ssm_decode", "init_ssm_cache"]
@@ -77,6 +82,7 @@ def ssm_forward(p: dict, u: torch.Tensor, *, d_inner: int, state: int,
     xbc, _ = _causal_conv(p, xbc, cd)
     x, Bm, Cm = torch.split(xbc, [d_inner, state, state], dim=-1)
     x = x.reshape(B, S, n_heads, head_dim)
+    x = shard_hint(x, "batch", None, "tp", None)
 
     dt = F.softplus(dt.float() + p["dt_bias"].float())           # (B,S,H)
     A = -torch.exp(p["A_log"].float())                           # (H,)
@@ -90,13 +96,14 @@ def ssm_forward(p: dict, u: torch.Tensor, *, d_inner: int, state: int,
     dac = da.reshape(B, nc, Q, H)
     dtc = dt.reshape(B, nc, Q, H)
 
-    cum = torch.cumsum(dac, dim=2)                               # (B,nc,Q,H)
+    # no DTensor rule for cumsum's backward (flip): run it group-local
+    cum = group_local(lambda d: torch.cumsum(d, dim=2), dac)     # (B,nc,Q,H)
     # intra-chunk decay L[i,j] = exp(cum_i - cum_j), i >= j
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]          # (B,nc,Q,Q,H)
     tri = torch.ones((Q, Q), dtype=torch.bool, device=u.device).tril()
     # mask in log-space BEFORE exp, as the reference does
-    Lmat = torch.exp(seg.masked_fill(~tri[None, None, :, :, None],
-                                     float("-inf")))
+    Lmat = torch.exp(seg.masked_fill(
+        replicate_like(~tri[None, None, :, :, None], seg), float("-inf")))
     del seg
 
     xdt = xc * dtc[..., None].to(cd)                             # (B,nc,Q,H,P)
@@ -116,7 +123,8 @@ def ssm_forward(p: dict, u: torch.Tensor, *, d_inner: int, state: int,
     S_chunk = (xw.reshape(B, nc, H * P, Q) @ Bc.float()
                ).reshape(B, nc, H, P, N)                         # (B,nc,H,P,N)
 
-    h = torch.zeros((B, H, P, N), dtype=f32, device=u.device)
+    h = replicate_like(torch.zeros((B, H, P, N), dtype=f32, device=u.device),
+                       S_chunk)
     h_prev = []
     for n in range(nc):                                          # emit PREVIOUS
         h_prev.append(h)
@@ -132,6 +140,7 @@ def ssm_forward(p: dict, u: torch.Tensor, *, d_inner: int, state: int,
     y = (y_intra + y_inter).reshape(B, S, H, P)
     y = y + x.float() * p["D"].float()[None, None, :, None]
     y = y.reshape(B, S, d_inner).to(cd)
+    y = shard_hint(y, "batch", None, "tp")
     y = rms_norm(y, p["out_norm"]) * silu(z)
     return y @ p["out_proj"].to(cd)
 

@@ -7,7 +7,10 @@ and embedding included) by ``lr * wd * p`` inside the same step, and clips
 by a float32 global norm with ``scale = min(1, clip / (gnorm + 1e-9))``.
 The schedule and the bias corrections are computed on the host in float32,
 as the reference computes them on the device, so no step waits for the
-device; the step counter is a host int32 scalar.
+device; the step counter is a host int32 scalar.  The leaves may be
+DTensors (a sharded state, ``train.steps.distribute_train_state``): the
+same foreach ops then run shard by shard, and the clipping norm is the
+global one.
 """
 from __future__ import annotations
 

@@ -11,8 +11,14 @@ the caller reads them.
 
 The prefill and decode steps run under ``torch.inference_mode()``.
 
-The reference's ``abstract_train_state`` (shapes for its dry-run lowering)
-waits for the dry-run tools (ROADMAP Queue 1).
+Sharded: ``distribute_train_state(state, mesh)`` places the parameters and
+moments by ``distributed.sharding.param_specs`` as DTensors; the same step
+then runs under ``axis_env(mesh)`` on a batch placed by ``batch_specs``.
+The loss is the global batch's, each gradient is brought to its leaf's
+placements, ``grad_norm`` is the global norm, and int8 compression works
+on each whole (gathered) stacked leaf, so its block scales are the
+one-device ones.  ``abstract_train_state`` gives the state's shapes and
+dtypes on the ``meta`` device.
 """
 from __future__ import annotations
 
@@ -22,13 +28,15 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..distributed.compression import compress_decompress_grads
+from ..distributed.logical import distribute_full, full_tensor, is_dtensor
+from ..distributed.sharding import distribute_params, param_specs
 from ..models import lm
 from ..models.convert import reference_path
 from .optimizer import AdamWConfig, adamw_init, adamw_update
 
-__all__ = ["init_train_state", "value_and_grad", "compress_stacked",
-           "make_train_step",
-           "make_prefill_step", "make_decode_step"]
+__all__ = ["init_train_state", "abstract_train_state",
+           "distribute_train_state", "value_and_grad", "compress_stacked",
+           "make_train_step", "make_prefill_step", "make_decode_step"]
 
 
 def init_train_state(cfg: ArchConfig, seed: int = 0,
@@ -36,6 +44,27 @@ def init_train_state(cfg: ArchConfig, seed: int = 0,
     """Parameters drawn from ``seed`` on ``device`` and zero moments."""
     params = lm.init_params(cfg, seed, device=device)
     return {"params": params, "opt": adamw_init(params)}
+
+
+def abstract_train_state(cfg: ArchConfig) -> Dict[str, Any]:
+    """The train state's structure on ``meta``: parameters and moments of
+    the parameters' shapes (float32) and an int32 step; nothing is
+    allocated."""
+    params = lm.abstract_params(cfg)
+    opt = adamw_init(params)
+    opt["step"] = torch.empty((), dtype=torch.int32, device="meta")
+    return {"params": params, "opt": opt}
+
+
+def distribute_train_state(state: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """Place a full train state (every rank holding the same one) on
+    ``mesh`` in place: parameters by ``param_specs``, the moments by the
+    same specs (``opt_state_specs``); the step stays a host scalar."""
+    specs = param_specs(state["params"], mesh)
+    distribute_params(state["params"], specs, mesh)
+    distribute_params(state["opt"]["m"], specs, mesh)
+    distribute_params(state["opt"]["v"], specs, mesh)
+    return state
 
 
 def value_and_grad(cfg: ArchConfig, params: lm.LM, batch: Dict, *,
@@ -49,8 +78,12 @@ def value_and_grad(cfg: ArchConfig, params: lm.LM, batch: Dict, *,
                           image_embed=batch.get("image_embed"),
                           block_causal=block_causal, attn_chunk=attn_chunk,
                           remat=remat)
-        grads = torch.autograd.grad(loss, list(params.parameters()))
-    return loss.detach(), list(grads)
+        leaves = list(params.parameters())
+        grads = list(torch.autograd.grad(loss, leaves))
+    for i, (g, p) in enumerate(zip(grads, leaves)):
+        if is_dtensor(g):
+            grads[i] = g.redistribute(p.device_mesh, p.placements)
+    return full_tensor(loss.detach()), grads
 
 
 def compress_stacked(params: lm.LM, grads: List[torch.Tensor]
@@ -65,15 +98,16 @@ def compress_stacked(params: lm.LM, grads: List[torch.Tensor]
         path, layer = reference_path(name)
         groups.setdefault(path, []).append(i)
     out = list(grads)
+    whole = [full_tensor(g) for g in grads]
     for path, idx in groups.items():
-        stacked = grads[idx[0]] if path[0] != "layers" else \
-            torch.stack([grads[i] for i in idx])
+        stacked = whole[idx[0]] if path[0] != "layers" else \
+            torch.stack([whole[i] for i in idx])
         (done,) = compress_decompress_grads([stacked])
-        if path[0] != "layers":
-            out[idx[0]] = done
-        else:
-            for l, i in enumerate(idx):
-                out[i] = done[l]
+        for l, i in enumerate(idx):
+            d = done if path[0] != "layers" else done[l]
+            out[i] = distribute_full(d, grads[i].device_mesh,
+                                     grads[i].placements) \
+                if is_dtensor(grads[i]) else d
     return out
 
 
@@ -91,6 +125,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
         if compress_grads:
             grads = compress_stacked(params, grads)
         om = adamw_update(opt_cfg, grads, state["opt"], params)
+        om["grad_norm"] = full_tensor(om["grad_norm"])
         return state, {"loss": loss, **om}
 
     return train_step

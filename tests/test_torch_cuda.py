@@ -1371,3 +1371,73 @@ def test_int8_compression_bits_on_the_card(dev, shape):
     assert torch.equal(oa.cpu().view(torch.int32), ob.view(torch.int32))
     assert torch.equal(efa.residual[0].cpu().view(torch.int32),
                        efb.residual[0].view(torch.int32))
+
+
+@pytest.fixture(scope="module")
+def cuda_mesh():
+    """A one-rank NCCL mesh ``("data", "model")`` of (1, 1) on cuda:0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.launch.mesh import make_local_mesh
+    return make_local_mesh(1, 1, device="cuda")
+
+
+def test_shard_hint_is_identity_at_tp1_on_the_card(dev, cuda_mesh):
+    from torch.distributed.tensor import Replicate
+    from repro_torch.distributed.logical import (axis_env, distribute_full,
+                                                 shard_hint, tp_size_of)
+    x = torch.randn(4, 32, 16, device=dev)
+    d = distribute_full(x, cuda_mesh, [Replicate(), Replicate()])
+    with axis_env(cuda_mesh):
+        assert tp_size_of() == 1
+        assert shard_hint(x, "batch", "sp", None) is x
+        for axes in (("batch", "sp", None), ("batch", None, "tp")):
+            got = shard_hint(d, *axes)
+            assert got is d
+    assert torch.equal(d.to_local(), x)
+
+
+@pytest.mark.parametrize("arch", ["granite_8b", "granite_moe_3b_a800m",
+                                  "hymba_1p5b"])
+def test_param_specs_place_and_gather_bits_on_the_card(dev, cuda_mesh,
+                                                       arch):
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.sharding import (distribute_params,
+                                                  param_specs)
+    from repro_torch.models import lm
+    cfg = get_config(arch).reduced()
+    want = {n: p.detach().clone()
+            for n, p in lm.init_params(cfg, 0, device=dev).named_parameters()}
+    params = lm.init_params(cfg, 0, device=dev)
+    distribute_params(params, param_specs(params, cuda_mesh), cuda_mesh)
+    for n, p in params.named_parameters():
+        assert p.device_mesh is cuda_mesh and p.requires_grad
+        full = p.full_tensor()
+        assert full.is_cuda and torch.equal(full, want[n]), n
+        assert torch.equal(p.to_local(), want[n]), n
+
+
+def test_one_rank_mesh_train_step_matches_the_plain_step(dev, cuda_mesh,
+                                                         lm_f32):
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.logical import (axis_env, distribute_full,
+                                                 placements_for)
+    from repro_torch.distributed.sharding import batch_specs
+    from repro_torch.train import steps
+    cfg = get_config("granite_8b").reduced()
+    tok = torch.randint(0, cfg.vocab, (4, 32),
+                        generator=torch.Generator().manual_seed(1)).to(dev)
+    batch = {"tokens": tok, "labels": tok}
+    one = steps.init_train_state(cfg, 0, device=dev)
+    l1, g1 = steps.value_and_grad(cfg, one["params"], batch, attn_chunk=16)
+    two = steps.distribute_train_state(
+        steps.init_train_state(cfg, 0, device=dev), cuda_mesh)
+    bs = batch_specs(cuda_mesh)
+    b2 = {k: distribute_full(v, cuda_mesh, placements_for(bs[k], cuda_mesh))
+          for k, v in batch.items()}
+    with axis_env(cuda_mesh):
+        l2, g2 = steps.value_and_grad(cfg, two["params"], b2, attn_chunk=16)
+    assert abs(float(l1) - float(l2)) <= 1e-5 * abs(float(l1))
+    for a, b in zip(g1, g2):
+        b = b.full_tensor()
+        assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())

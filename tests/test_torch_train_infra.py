@@ -351,12 +351,6 @@ def test_train_launcher_runs_on_cpu(tmp_path, capsys):
     assert "[train] step     2" in capsys.readouterr().out
 
 
-def test_train_launcher_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        port_launch.main(["--arch", "granite_8b", "--reduced", "--device",
-                          "cpu", "--data-par", "2"])
-
-
 def test_e2e_twin_runs_on_cpu_and_resumes(tmp_path, capsys):
     argv = ["--quick", "--steps", "12", "--device", "cpu", "--ckpt-dir",
             str(tmp_path)]
