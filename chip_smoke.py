@@ -132,11 +132,23 @@
    ``make_local_mesh(1, 1)``, timed with peak memory, the runs' losses,
    grad norms and every leaf of params, m and v held equal bit for bit
    (one rank runs the one device's local kernels); (b) each run's
-   parameter checkpoint restored into the other layout, bit for bit.
+   parameter checkpoint restored into the other layout, bit for bit;
+14. runs the dry-run tools (``repro_torch.launch.dryrun``: a fake world,
+   every input a ``meta`` DTensor, per-rank counts; no card, no kernel of
+   the port) on the host in the background from before phase 1 under
+   ``nice``, one process after another, and reads them after phase 13: (a)
+   every arch's ``decode_32k`` at (16, 16) (each arch's head, KV, expert
+   and vocab layout at tp = 16), (b) hymba_1p5b ``train_4k`` at (16, 16)
+   (the sequence-parallel train step at full width), (c)
+   qwen3_moe_235b_a22b ``decode_32k`` at (2, 16, 16) (the pod axis, 128
+   experts), (d) phase 11 (b)'s hymba_1p5b step (B=2 x 1,280, remat) on a
+   one-rank world: its argument bytes must equal the state and batch
+   phase 13 (a) trained on, and its predicted peak is printed beside phase
+   11 (b)'s measured one.  Every cell must be ``ok``.
 
 Last it prints one ``{"kernels": [...]}`` line (launches on the main, GBT,
 applications, serving, out-of-core, LM proximity-head, LM training,
-float32 and LM sharding paths; K2's float32 instantiation has its own entry), errors,
+float32 and LM sharding paths; the dry runs launch none; K2's float32 instantiation has its own entry), errors,
 kernel / plain / library times and the least time the card could take),
 the card's name
 and power limit, and as its last line ``{"ok": true, "device": {...}}``.
@@ -147,10 +159,14 @@ port's sources are not beside it.  About 10-11 minutes on one H100, most
 of it the host computations the card's results are held against, the
 out-of-core row and the LM decode (host-bound).
 """
+import atexit
 import dataclasses
 import gc
 import json
 import os
+import shlex
+import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -220,6 +236,9 @@ E2E_STEPS, E2E_SAVE, E2E_FAIL = 20, 10, 15
 # phase 13: the LM's sharding layer; (a) and (b) at phase 11 (b)'s size
 MESH_STEPS = 2                # (a): train_loop steps, each way
 MESH_CHUNK = 640              # (a): attention chunk dividing 1,280
+# phase 14: how long the dry runs may still take once phase 13 is done
+# (they start before phase 1 and take ~3 minutes of one host core)
+DRYRUN_WAIT_S = 600
 TREE_FIELDS = ("feature", "threshold", "left", "right", "leaf_id", "value",
                "n_node_samples")
 
@@ -1440,6 +1459,7 @@ def phase11(torch, dev):
           f"({time.perf_counter() - t:.1f} s)", flush=True)
     del gd
     print(f"phase 11 wall: {time.perf_counter() - t11:.1f} s", flush=True)
+    return peak
 
 
 class _StepClock:
@@ -1461,10 +1481,11 @@ def phase13(torch, dev):
     parameters checkpointed and restored into the other layout (the mesh
     run's into one device, the one-device run's onto the mesh), bit for
     bit.  The whole state (params, m and v: 19.69 GB) would take ~75 s
-    more of disk writes; m and v go through the same code.  A two-rank
-    world on one card is not run: torch 2.11's DTensor cannot place the
-    sequence-parallel residual's matmul (PERF.md, Findings)."""
+    more of disk writes; m and v go through the same code.  Returns the
+    bytes of the state and batch the one-device run trains on (phase 14
+    (d) predicts them)."""
     from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import TokenPipeline
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.train import train_loop
     from repro_torch.train.checkpoint import (restore_checkpoint,
@@ -1503,6 +1524,16 @@ def phase13(torch, dev):
             state, hist = train_loop(cfg, mesh=m, monitor=clock, **kw)
             torch.cuda.synchronize()
             total = time.perf_counter() - t
+            if m is None:      # the state's leaves (and host step), a batch
+                pipe = TokenPipeline(vocab=cfg.vocab, global_batch=TRAIN_B,
+                                     seq_len=TRAIN_S)
+                arg_bytes = sum(
+                    t.numel() * t.element_size() for t in
+                    list(state["params"].parameters())
+                    + list(state["opt"]["m"].parameters())
+                    + list(state["opt"]["v"].parameters())
+                    + [state["opt"]["step"]]) + sum(
+                    v.nbytes for v in pipe.batch_at(0).values())
             peak = torch.cuda.max_memory_allocated() - base
             ck = os.path.join(scratch, "mesh" if m is not None else "one")
             t = time.perf_counter()
@@ -1578,7 +1609,133 @@ def phase13(torch, dev):
               f"one-device run's restored onto the mesh {t_mesh:.1f} s; every "
               f"leaf equal bit for bit", flush=True)
 
+    print(f"phase 13 (a) the one-device run's state and batch: {arg_bytes} "
+          f"bytes", flush=True)
     print(f"phase 13 wall: {time.perf_counter() - t13:.1f} s", flush=True)
+    return arg_bytes
+
+
+# phase 14 (d): hymba_1p5b's phase-11 (b) train step on a fake one-rank
+# world, run by the dry run in its own process (no card)
+DRYRUN_ONE_RANK = """
+import json, sys
+from repro_torch.configs.base import ShapeCell
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_local_mesh
+dryrun.fake_world(1)
+cell = ShapeCell("train_{s}", {s}, {b}, "train")
+rec = dryrun.run_cell("{arch}", cell.name, cell=cell,
+                      mesh=make_local_mesh(1, 1, device="cpu"))
+print(json.dumps(rec))
+sys.exit(0 if rec["ok"] else 1)
+"""
+# phase 14's dry-run cells: (label, arguments of ``python -m
+# repro_torch.launch.dryrun``, or None for the one-rank helper above)
+DRYRUN_CELLS = (
+    ("(a) every arch's decode_32k at (16, 16)",
+     ["--all", "--shape", "decode_32k"]),
+    ("(b) hymba_1p5b train_4k at (16, 16)",
+     ["--arch", LM_ARCH, "--shape", "train_4k"]),
+    ("(c) qwen3_moe_235b_a22b decode_32k at (2, 16, 16)",
+     ["--arch", "qwen3_moe_235b_a22b", "--shape", "decode_32k",
+      "--multi-pod"]),
+    ("(d) hymba_1p5b B=2 x 1,280 on one rank", None),
+)
+
+
+def phase14_start():
+    """Start phase 14's dry runs (``repro_torch.launch.dryrun``: a fake
+    world of 256, 512 or 1 rank, every input a ``meta`` DTensor; no card,
+    no kernel of the port) in the background under ``nice``: one process
+    a cell set, one after another (one host core busy, not four, while
+    phases 1-3 run their host fits), each writing its log, exit code and
+    records under a temporary directory.  Returns the directory and the
+    shell that runs them."""
+    out = tempfile.mkdtemp(prefix="dryrun14_")
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    steps = []
+    for i, (_, args) in enumerate(DRYRUN_CELLS):
+        if args is None:
+            cmd = [sys.executable, "-c", DRYRUN_ONE_RANK.format(
+                arch=LM_ARCH, b=TRAIN_B, s=TRAIN_S)]
+        else:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                   "--out", os.path.join(out, str(i))]
+        log, rc = (shlex.quote(os.path.join(out, f"{i}.{x}"))
+                   for x in ("log", "rc"))
+        steps.append(f"{shlex.join(cmd)} > {log} 2>&1; echo $? > {rc}")
+    proc = subprocess.Popen(["nice", "-n", "10", "sh", "-c", "; ".join(steps)],
+                            cwd=ROOT, env=env, start_new_session=True)
+    atexit.register(phase14_stop, proc)
+    return out, proc
+
+
+def phase14_stop(proc):
+    """Stop phase 14's shell and the dry run it is running."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def phase14_finish(out, proc, arg_bytes13, peak11):
+    """Wait for phase 14's dry runs and check them: every cell ``ok``; (d)'s
+    argument bytes equal to the state and batch phase 13 (a) trained on
+    (``arg_bytes13``); (d)'s predicted peak printed beside phase 11 (b)'s
+    measured one (``peak11``), not checked."""
+    t = time.perf_counter()
+    try:
+        try:
+            proc.wait(timeout=DRYRUN_WAIT_S)
+        except subprocess.TimeoutExpired:
+            raise RuntimeError(f"phase 14: still running after "
+                               f"{DRYRUN_WAIT_S} s more")
+        for i, (label, args) in enumerate(DRYRUN_CELLS):
+            with open(os.path.join(out, f"{i}.log")) as f:
+                text = f.read()
+            with open(os.path.join(out, f"{i}.rc")) as f:
+                rc = int(f.read())
+            if args is None:
+                one = json.loads(next(
+                    line for line in reversed(text.splitlines())
+                    if line.startswith("{")))
+                recs = [one]
+            else:
+                d = os.path.join(out, str(i))
+                recs = []
+                for name in sorted(os.listdir(d)) if os.path.isdir(d) else []:
+                    with open(os.path.join(d, name)) as f:
+                        recs.append(json.load(f))
+            check(rc == 0 and recs and all(r["ok"] for r in recs),
+                  f"phase 14 {label}: exit {rc}, "
+                  f"{[r.get('error') for r in recs if not r['ok']]}; "
+                  f"{text[-2000:]}")
+            for r in recs:
+                m = r["memory"]
+                print(f"phase 14 {label}: {r['arch']} {r['shape']} "
+                      f"{r['mesh']} ok {r['ok']} trace {r['trace_s']} s, "
+                      f"tc_flops {r['tc_flops']:.4e} a rank, memory a rank "
+                      f"{(m['argument_size'] + m['temp_size']) / 2 ** 30:.3f} "
+                      f"GiB (arguments {m['argument_size']}, temp "
+                      f"{m['temp_size']}), collective bytes a rank "
+                      f"{r['tc_collective_total']:.4e} "
+                      f"({json.dumps(r['collectives'])})", flush=True)
+        one = one["memory"]
+        check(one["argument_size"] == arg_bytes13,
+              f"phase 14 (d): argument bytes {one['argument_size']} against "
+              f"phase 13 (a)'s state and batch, {arg_bytes13}")
+        pred = one["argument_size"] + one["temp_size"]
+        print(f"phase 14 (d) {LM_ARCH} B={TRAIN_B} x S={TRAIN_S}, remat, one "
+              f"rank: arguments {one['argument_size']} bytes = phase 13 "
+              f"(a)'s state and batch; predicted peak (arguments + temp) "
+              f"{pred / 2 ** 30:.3f} GiB beside phase 11 (b)'s measured peak "
+              f"{peak11 / 2 ** 30:.3f} GiB (gap "
+              f"{(pred - peak11) / 2 ** 30:+.3f} GiB, not checked)",
+              flush=True)
+    finally:
+        phase14_stop(proc)
+        shutil.rmtree(out, ignore_errors=True)
+    print(f"phase 14: waited {time.perf_counter() - t:.1f} s after phase 13",
+          flush=True)
 
 
 def phase12(torch, dev, fk, Xtr, ytr, Xte, snap_bytes64):
@@ -1968,6 +2125,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
+
+    # ---- phase 14 starts: the dry runs, on the host, in the background ----
+    dry_out, dry_proc = phase14_start()
 
     # ---- phase 0: build every kernel, in parallel ----
     t0 = time.perf_counter()
@@ -3216,7 +3376,7 @@ def main() -> int:
 
     # ---- phase 11: LM training on the card (no kernel of the port) ----
     reset_counts()
-    phase11(torch, dev)
+    peak11 = phase11(torch, dev)
     torch.cuda.synchronize()
     train_launches = read_counts()
     print(f"phase 11 launches K1/K2/K3/K4: "
@@ -3227,11 +3387,14 @@ def main() -> int:
 
     # ---- phase 13: the LM's sharding layer (no kernel of the port) ----
     reset_counts()
-    phase13(torch, dev)
+    arg_bytes13 = phase13(torch, dev)
     torch.cuda.synchronize()
     mesh_launches = read_counts()
     print(f"phase 13 launches K1/K2/K3/K4: "
           f"{'/'.join(str(v) for v in mesh_launches.values())}", flush=True)
+
+    # ---- phase 14: the dry runs' results (no card, no kernel) ----
+    phase14_finish(dry_out, dry_proc, arg_bytes13, peak11)
 
     # ---- bounds, from this run's shapes and data ----
     # K1 reads X once, each real node's 16-byte record once (not the

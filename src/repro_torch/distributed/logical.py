@@ -14,6 +14,14 @@ hymba's 25, granite-moe's 40 experts simply leave that dim unsharded).
 On a ``DTensor`` a hint redistributes to the resolved placements, the
 counterpart of the reference's ``with_sharding_constraint``.
 
+DTensor has no rule for some layouts XLA reshards without complaint, so
+the model code places its tensors explicitly there: ``reshape_hinted``
+splits or merges dims (heads out of a projection's columns, back into
+them) with both sides placed so the view has a rule; ``local_map`` runs
+a per-shard computation (the chunked attention, the SSD scan, the MoE
+dispatch) on each rank's local tensors; ``pad_zeros`` pads by
+concatenation (torch 2.11's ``F.pad`` rule fails on a DTensor).
+
 The mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with named dims
 or an :class:`AbstractMesh` (axis names and sizes, no devices), set with
 ``axis_env(mesh)``; the padding paths read its model-axis size through
@@ -23,16 +31,19 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import threading
 from typing import Dict, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 __all__ = ["axis_env", "shard_hint", "current_mesh", "perf_env", "get_opt",
            "tp_size_of", "AbstractMesh", "mesh_axes", "placements_for",
            "is_dtensor", "replicate_like", "group_local", "distribute_full",
-           "full_tensor", "hint_spec", "captured_env", "replicated"]
+           "full_tensor", "hint_spec", "captured_env", "replicated",
+           "reshape_hinted", "local_map", "pad_zeros", "spec_of",
+           "fsdp_gather"]
 
 _state = threading.local()
 
@@ -194,10 +205,41 @@ def replicated(t: torch.Tensor) -> torch.Tensor:
     return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
 
 
+def fsdp_gather(w: torch.Tensor) -> torch.Tensor:
+    """A parameter (or its cast) whole over the batch axes, still sharded
+    over the model axis: ZeRO-3's all-gather before use, so each rank
+    multiplies its own batch rows by it (its backward is the gradient's
+    reduce-scatter).  Left to itself DTensor may shard a small batch's
+    GEMM over the contraction instead (a decode step), multiplying every
+    row on every rank.  A plain tensor, or no mesh: ``w`` itself."""
+    if current_mesh() is None or not isinstance(w, DTensor):
+        return w
+    mesh = w.device_mesh
+    pl = [Replicate() if name in ("pod", "data") else p
+          for name, p in zip(mesh_axes(mesh), w.placements)]
+    return w.redistribute(mesh, pl)
+
+
 def full_tensor(t: torch.Tensor) -> torch.Tensor:
     """The whole of ``t`` as a plain tensor (a collective on a DTensor:
     every rank of its mesh must call it); ``t`` itself otherwise."""
     return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def spec_of(t) -> tuple:
+    """A DTensor's placements as a spec (each tensor dim's mesh axes in the
+    mesh's order, ``None`` where it is not sharded); ``None`` for a plain
+    tensor."""
+    if not isinstance(t, DTensor):
+        return None
+    names = list(mesh_axes(t.device_mesh))
+    spec = []
+    for d in range(t.dim()):
+        axes = tuple(n for n, p in zip(names, t.placements)
+                     if isinstance(p, Shard) and p.dim == d)
+        spec.append(None if not axes else axes[0] if len(axes) == 1
+                    else axes)
+    return tuple(spec)
 
 
 def hint_spec(shape, logical_axes, mesh) -> tuple:
@@ -219,14 +261,138 @@ def hint_spec(shape, logical_axes, mesh) -> tuple:
 
 
 def shard_hint(x: torch.Tensor, *logical_axes) -> torch.Tensor:
+    """``x`` placed by ``logical_axes``; a redistribute even where the
+    placements already agree, so the gradient takes them too (its
+    backward), as ``with_sharding_constraint`` constrains the cotangent."""
     mesh = current_mesh()
     if mesh is None or not isinstance(x, DTensor):
         return x
     want = placements_for(hint_spec(x.shape, logical_axes, x.device_mesh),
                           x.device_mesh)
-    if tuple(want) == tuple(x.placements):
-        return x
     return x.redistribute(x.device_mesh, want)
+
+
+def _runs(fine, coarse):
+    """For a reshape that merges runs of adjacent dims of ``fine`` into the
+    dims of ``coarse``: each coarse dim's run of fine dims."""
+    runs, i = [], 0
+    for c in coarse:
+        run, n = [], 1
+        while i < len(fine) and (n < c or not run) and n * fine[i] <= c:
+            run.append(i)
+            n *= fine[i]
+            i += 1
+        if n != c:
+            raise ValueError(f"{tuple(fine)} -> {tuple(coarse)} is not a "
+                             "merge of adjacent dims")
+        runs.append(run)
+    if i != len(fine):
+        raise ValueError(f"{tuple(fine)} -> {tuple(coarse)} is not a "
+                         "merge of adjacent dims")
+    return runs
+
+
+def reshape_hinted(x: torch.Tensor, shape, *logical_axes) -> torch.Tensor:
+    """``x.reshape(shape)``, a split or a merge of adjacent dims, with
+    ``logical_axes`` naming the dims of the finer side (the one with more
+    dims).  Under a mesh both sides are placed so that DTensor has a rule
+    for the view in either direction (the backward too): the finer side by
+    the hint, and each merged run of dims sharded only on its leading dim,
+    which the coarse dim inherits.  A head count that does not divide the
+    model axis leaves its dim replicated there, so a projection's columns
+    are gathered over the model axis before they split into heads, as XLA
+    does.  No mesh or a plain ``x``: a plain reshape."""
+    shape = tuple(int(s) for s in shape)
+    mesh = current_mesh()
+    if mesh is None or not isinstance(x, DTensor):
+        return x.reshape(shape)
+    split = len(shape) >= x.dim()
+    fine, coarse = (shape, tuple(x.shape)) if split \
+        else (tuple(x.shape), shape)
+    spec = list(hint_spec(fine, logical_axes, x.device_mesh))
+    runs = _runs(fine, coarse)
+    for run in runs:
+        for d in run[1:]:
+            spec[d] = None
+    cspec = tuple(spec[run[0]] for run in runs)
+    fmesh = x.device_mesh
+    fine_pl, coarse_pl = placements_for(spec, fmesh), \
+        placements_for(cspec, fmesh)
+    first, then = (coarse_pl, fine_pl) if split else (fine_pl, coarse_pl)
+    # redistributes even where the placements already agree: their
+    # backwards bring the gradient to them before the view's backward runs
+    return x.redistribute(fmesh, first).reshape(shape).redistribute(fmesh,
+                                                                    then)
+
+
+def pad_zeros(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    """``t`` zero-padded at the end of ``dim`` to ``size``: a concatenation
+    with zeros, which torch 2.11's DTensor places where its ``F.pad`` rule
+    fails; the same values as ``F.pad``.  On a DTensor the zeros take
+    ``t``'s placements (``dim`` whole on every rank), so each rank makes
+    only its own shard of them."""
+    dim = dim % t.dim()
+    if not isinstance(t, DTensor):
+        shape = list(t.shape)
+        shape[dim] = size - shape[dim]
+        return torch.cat([t, t.new_zeros(shape)], dim=dim)
+    mesh = t.device_mesh
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+          for p in t.placements]
+    t = t.redistribute(mesh, pl)
+    local = list(t.to_local().shape)
+    glob = list(t.shape)
+    local[dim] = glob[dim] = size - glob[dim]
+    zeros = DTensor.from_local(t.to_local().new_zeros(local), mesh, pl,
+                               run_check=False, shape=torch.Size(glob),
+                               stride=torch.empty(glob,
+                                                  device="meta").stride())
+    return torch.cat([t, zeros], dim=dim)
+
+
+def local_map(fn, args, specs, out_specs):
+    """``fn(*args)`` on each rank's shards, for a computation that is
+    independent along every sharded dim (sequences, heads, groups): the
+    counterpart of XLA running the reference's per-shard code where DTensor
+    has no rule (sort, scatter, cumsum's backward, a batched matmul over a
+    sharded non-leading dim on torch 2.11).
+
+    No argument a DTensor: a plain call.  Otherwise DTensor argument ``i``
+    is placed by ``specs[i]`` (a resolved spec as ``hint_spec`` gives it;
+    ``None`` keeps its placements, for a tensor ``fn`` writes in place),
+    ``fn`` runs on the local tensors (plain arguments as they are), and its
+    outputs (a tensor or a tuple) become DTensors with ``out_specs[j]``'s
+    placements.  An argument replicated over a mesh dim that shards another
+    argument gets its gradient as a partial sum there (each rank's share
+    of the computation adds to it)."""
+    ref = next((a for a in args if isinstance(a, DTensor)), None)
+    if ref is None:
+        return fn(*args)
+    mesh = ref.device_mesh
+    placed = []
+    for a, spec in zip(args, specs):
+        if isinstance(a, DTensor) and spec is not None:
+            # always: its backward brings the gradient back to a's layout
+            a = a.redistribute(mesh, placements_for(spec, mesh))
+        placed.append(a)
+    sharded = [any(isinstance(a, DTensor) and isinstance(a.placements[m],
+                                                         Shard)
+                   for a in placed) for m in range(mesh.ndim)]
+    local = []
+    for a in placed:
+        if not isinstance(a, DTensor):
+            local.append(a)
+            continue
+        grad_pl = [Partial() if sharded[m] and isinstance(p, Replicate)
+                   else p for m, p in enumerate(a.placements)]
+        local.append(a.to_local(grad_placements=grad_pl))
+    out = fn(*local)
+    single = not isinstance(out, tuple)
+    outs = (out,) if single else out
+    wrapped = tuple(DTensor.from_local(o, mesh, placements_for(sp, mesh),
+                                       run_check=False)
+                    for o, sp in zip(outs, out_specs))
+    return wrapped[0] if single else wrapped
 
 
 def group_local(fn, *args):
@@ -240,16 +406,5 @@ def group_local(fn, *args):
     ref = next((a for a in args if isinstance(a, DTensor)), None)
     if ref is None:
         return fn(*args)
-    mesh = ref.device_mesh
-    ax, size = _resolve("batch", mesh_axes(mesh))
-    n0 = args[0].shape[0]
-    spec0 = ax if size > 1 and n0 % size == 0 and n0 >= size else None
-    pl = placements_for((spec0,), mesh)
-    local = [a.redistribute(mesh, pl).to_local()
-             if isinstance(a, DTensor) else a for a in args]
-    out = fn(*local)
-
-    def wrap(o):
-        return DTensor.from_local(o, mesh, pl, run_check=False)
-    return tuple(wrap(o) for o in out) if isinstance(out, tuple) \
-        else wrap(out)
+    spec = hint_spec(args[0].shape[:1], ("batch",), ref.device_mesh)
+    return local_map(fn, args, [spec] * len(args), itertools.repeat(spec))

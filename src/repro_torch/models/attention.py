@@ -16,9 +16,16 @@ DTensors: q/k/v are hinted head-parallel over the model axis, and when the
 head count does not divide the model axis (``tp``) the heads are padded
 with zero heads first (``perf_env(head_pad=...)``, on by default), as in
 the reference; padded query heads project through zero ``wo`` rows, so
-the padding is exact.  The positions, rope tables, masks and running
-softmax state made here become replicated DTensors on the input's mesh.
-With no mesh, or ``tp == 1``, none of this runs.
+the padding is exact.  A projection's columns split into heads (and merge
+back) through ``logical.reshape_hinted``, so a head count that does not
+divide ``tp`` (8 KV heads at tp = 16) is replicated over the model axis
+before the split.  The chunked softmax runs on each rank's (batch, heads)
+shard (``logical.local_map``): it is independent per head, and DTensor
+has no rule on torch 2.11 for its batched matmuls over sharded heads.
+Decode under a mesh is flash-decode: each rank attends over its block of
+the sequence-sharded cache (writing the new key and value where the slot
+falls in its block) and the blocks' softmax states are combined across the
+model axis.  With no mesh, or ``tp == 1``, none of this runs.
 """
 from __future__ import annotations
 
@@ -27,8 +34,9 @@ from typing import Optional, Union
 
 import torch
 
-from ..distributed.logical import (get_opt, replicate_like, shard_hint,
-                                   tp_size_of)
+from ..distributed.logical import (get_opt, is_dtensor, local_map,
+                                   pad_zeros, replicate_like, reshape_hinted,
+                                   shard_hint, spec_of, tp_size_of)
 from .layers import Initializer, apply_rope, rotary_embedding
 
 __all__ = ["init_attn", "attn_forward", "attn_decode", "mask_fn"]
@@ -72,9 +80,14 @@ def mask_fn(q_pos, k_pos, *, window: int = 0, prefix_len: int = 0,
 
 
 def _proj(x, w):
-    """``einsum('bsd,dnh->bsnh')`` as one GEMM."""
+    """``einsum('bsd,dnh->bsnh')`` as one GEMM, the columns split into
+    heads head-parallel where the head count divides the model axis."""
     D, n, h = w.shape
-    return (x @ w.reshape(D, n * h)).reshape(*x.shape[:-1], n, h)
+    # the weight gathered over the batch axes (FSDP) and placed on both
+    # sides of its merge, so its gradient splits back into heads too
+    w = reshape_hinted(w, (D, n * h), None, "tp", None)
+    return reshape_hinted(x @ w, (*x.shape[:-1], n, h),
+                          "batch", None, "tp", None)
 
 
 def _proj_qkv(p, x, cd):
@@ -91,19 +104,11 @@ def _proj_qkv(p, x, cd):
 def _out_proj(p, o, cd):
     """``einsum('bsnh,nhd->bsd')`` (+ bias)."""
     n, h, D = p["wo"].shape
-    y = o.reshape(*o.shape[:-2], n * h) @ p["wo"].to(cd).reshape(n * h, D)
+    o = reshape_hinted(o, (*o.shape[:-2], n * h), "batch", None, "tp", None)
+    y = o @ reshape_hinted(p["wo"].to(cd), (n * h, D), "tp", None, None)
     if "bo" in p:
         y = y + p["bo"].to(cd)
     return y
-
-
-def _pad_seq(t: torch.Tensor, S: int) -> torch.Tensor:
-    """``t`` (B, S_in, ...) zero-padded along dim 1 to ``S``: a
-    concatenation with zeros, which torch 2.11's DTensor places on a
-    batch-sharded ``t`` (its ``F.pad`` rule fails there)."""
-    zeros = torch.zeros((t.shape[0], S - t.shape[1]) + tuple(t.shape[2:]),
-                        dtype=t.dtype, device=t.device)
-    return torch.cat([t, replicate_like(zeros, t)], dim=1)
 
 
 def attn_forward(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
@@ -120,7 +125,7 @@ def attn_forward(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     # pad the sequence to a chunk multiple; padded keys are masked out below
     S = (S_in + chunk - 1) // chunk * chunk
     if S != S_in:
-        q, k, v = (_pad_seq(t, S) for t in (q, k, v))
+        q, k, v = (pad_zeros(t, 1, S) for t in (q, k, v))
     pos = torch.arange(S, device=dev) if positions is None else positions
     cos, sin = (replicate_like(t, x)
                 for t in rotary_embedding(pos, head_dim, rope_theta))
@@ -138,8 +143,7 @@ def attn_forward(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     tp = tp_size_of()
     if get_opt("head_pad") and tp > 1 and n_heads % tp != 0:
         n_heads_c = (n_heads + tp - 1) // tp * tp
-        padh = (0, 0, 0, n_heads_c - n_heads)
-        q, k, v = (torch.nn.functional.pad(t, padh) for t in (q, k, v))
+        q, k, v = (pad_zeros(t, 2, n_heads_c) for t in (q, k, v))
     q = q.transpose(1, 2)                            # (B, H, S, hd)
     k = k.transpose(1, 2)
     v = v.transpose(1, 2)
@@ -147,18 +151,37 @@ def attn_forward(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     q = shard_hint(q, "batch", "tp", None, None)
     k = shard_hint(k, "batch", "tp", None, None)
     v = shard_hint(v, "batch", "tp", None, None)
-    scale = head_dim ** -0.5
+    spec = spec_of(q)
+    out = local_map(
+        functools.partial(_chunked_attention, pos=pos, S_in=S_in,
+                          head_dim=head_dim, window=window,
+                          prefix_len=prefix_len, chunk=chunk,
+                          block_causal=block_causal,
+                          window_dynamic=window_dynamic),
+        (q, k, v), (spec, spec, spec), (spec,))      # (B, H, S, hd)
+    # drop padded heads (their wo rows are zero anyway) + padded positions
+    out = out.transpose(1, 2)[:, :S_in, :n_heads]    # (B, S_in, H, hd)
+    return _out_proj(p, out, cd)
 
+
+def _chunked_attention(q, k, v, *, pos, S_in, head_dim, window, prefix_len,
+                       chunk, block_causal, window_dynamic):
+    """The online-softmax loop over KV chunks on (B, H, S, hd) tensors, the
+    reference's scan step for step (one rank's heads under a mesh)."""
+    B, n_heads_c, S, _ = q.shape
+    cd = q.dtype
+    dev = q.device
+    pos = pos.to(dev)
+    scale = head_dim ** -0.5
     n_chunks = S // chunk
     valid_k = pos < S_in                             # padded keys invalid
     outs = []
     for qi in range(n_chunks):
         q_blk = q[:, :, qi * chunk:(qi + 1) * chunk]
         q_pos = pos[qi * chunk:(qi + 1) * chunk]
-        m_run, l_run, o_run = (replicate_like(t, x) for t in (
-            torch.full((B, n_heads_c, chunk), NEG_INF, device=dev),
-            torch.zeros((B, n_heads_c, chunk), device=dev),
-            torch.zeros((B, n_heads_c, chunk, head_dim), device=dev)))
+        m_run = torch.full((B, n_heads_c, chunk), NEG_INF, device=dev)
+        l_run = torch.zeros((B, n_heads_c, chunk), device=dev)
+        o_run = torch.zeros((B, n_heads_c, chunk, head_dim), device=dev)
         n_kv_chunks = qi + 1 if (block_causal and prefix_len == 0) \
             else n_chunks
         for ci in range(n_kv_chunks):
@@ -169,8 +192,7 @@ def attn_forward(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
                            prefix_len=prefix_len,
                            window_dynamic=window_dynamic)
             mask &= valid_k[sl][None, :]
-            mask = replicate_like(~mask[None, None], x)
-            s = s.float().masked_fill(mask, NEG_INF)
+            s = s.float().masked_fill(~mask[None, None], NEG_INF)
             m_new = torch.maximum(m_run, s.amax(-1))
             alpha = torch.exp(m_run - m_new)
             prob = torch.exp(s - m_new[..., None])
@@ -180,10 +202,7 @@ def attn_forward(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
             m_run = m_new
         outs.append((o_run / torch.clamp(l_run[..., None], min=1e-30)
                      ).to(cd))
-    out = torch.cat(outs, dim=2)                     # (B, H, S, hd)
-    # drop padded heads (their wo rows are zero anyway) + padded positions
-    out = out.transpose(1, 2)[:, :S_in, :n_heads]    # (B, S_in, H, hd)
-    return _out_proj(p, out, cd)
+    return torch.cat(outs, dim=2)
 
 
 @functools.lru_cache(maxsize=16)
@@ -217,6 +236,12 @@ def attn_decode(p: dict, x: torch.Tensor, k_cache: torch.Tensor,
     dev = x.device
     S_max = k_cache.shape[1]
     q, k, v = _proj_qkv(p, x, cd)
+    if isinstance(pos, torch.Tensor) and pos.dim() == 0:
+        pos = pos.expand(B)                          # lockstep, as a tensor
+    if is_dtensor(k_cache):
+        return _decode_sharded(p, q, k, v, k_cache, v_cache, pos, cd,
+                               n_heads=n_heads, n_kv=n_kv, head_dim=head_dim,
+                               rope_theta=rope_theta, window=window)
     if isinstance(pos, torch.Tensor):
         pos = pos.to(dev)
         cos, sin = rotary_embedding(pos[:, None], head_dim, rope_theta)
@@ -255,3 +280,74 @@ def attn_decode(p: dict, x: torch.Tensor, k_cache: torch.Tensor,
     o = (prob[:, :, None] @ vv)[:, :, 0]             # (B, H, hd)
     y = _out_proj(p, o.reshape(B, 1, n_heads, head_dim), cd)
     return y, k_cache, v_cache
+
+
+def _decode_sharded(p, q, k, v, k_cache, v_cache, pos, cd, *, n_heads,
+                    n_kv, head_dim, rope_theta, window):
+    """Flash-decode on DTensor caches placed by ``cache_specs`` (batch over
+    the data axes, the sequence over the model axis where it divides):
+    each rank writes and attends over its own block of the sequence
+    (``_decode_block``), and the blocks' running maxima, sums and outputs
+    combine over the model axis.  The caches are written in place."""
+    B = q.shape[0]
+    S_max = k_cache.shape[1]
+    cspec = spec_of(k_cache)
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.full((B,), pos, dtype=torch.int64)
+    pos = replicate_like(pos.to(k_cache.device), k_cache)
+    b, seq = cspec[0], cspec[1]
+    S_loc = k_cache.to_local().shape[1]
+    lo = k_cache.device_mesh.get_local_rank("model") * S_loc \
+        if seq == "model" else 0
+    qkv = (b, None, None, None)
+    m, l, o = local_map(
+        functools.partial(_decode_block, lo=lo, S_max=S_max, n_heads=n_heads,
+                          n_kv=n_kv, head_dim=head_dim,
+                          rope_theta=rope_theta, window=window),
+        (q, k, v, k_cache, v_cache, pos), (qkv, qkv, qkv, None, None, (b,)),
+        ((b, None, seq), (b, None, seq), (b, None, seq, None)))
+    top = m.amax(-1, keepdim=True)                   # (B, H, 1)
+    w = torch.exp(m - top)                           # (B, H, blocks)
+    total = (l * w).sum(-1)                          # (B, H)
+    o = ((o * w[..., None]).sum(2) / total[..., None]).to(cd)
+    y = _out_proj(p, o.reshape(B, 1, n_heads, head_dim), cd)
+    return y, k_cache, v_cache
+
+
+def _decode_block(q, k, v, kc, vc, pos, *, lo, S_max, n_heads, n_kv,
+                  head_dim, rope_theta, window):
+    """One rank's block ``[lo, lo + S_loc)`` of the caches: q and k rotated,
+    the new key and value written where a lane's slot falls in the block,
+    and per (lane, head) the block's score maximum, its sum of
+    exponentials and the unnormalized output, each with a trailing block
+    axis of 1."""
+    B, S_loc = kc.shape[0], kc.shape[1]
+    cd = q.dtype
+    dev = q.device
+    cos, sin = rotary_embedding(pos[:, None], head_dim, rope_theta)
+    qk = apply_rope(torch.cat([q, k], dim=2), cos, sin)
+    q, k = qk[:, :, :n_heads], qk[:, :, n_heads:]
+    slot = pos % S_max if window else torch.clamp(pos, max=S_max - 1)
+    idx = slot - lo
+    mine = ((idx >= 0) & (idx < S_loc))[:, None, None]
+    idx = torch.clamp(idx, 0, S_loc - 1)
+    rows = torch.arange(B, device=dev)
+    for cache, new in ((kc, k), (vc, v)):
+        cache[rows, idx] = torch.where(mine, new[:, 0].to(cache.dtype),
+                                       cache[rows, idx])
+    kpos = torch.arange(S_loc, device=dev) + lo
+    valid = kpos < torch.clamp(pos + 1, max=S_max)[:, None] if window \
+        else kpos <= pos[:, None]
+    group = n_heads // n_kv
+    qh = q.reshape(B, n_heads, 1, head_dim)
+    kk = kc.to(cd)
+    vv = vc.to(cd)
+    if group > 1:
+        kk = kk.repeat_interleave(group, dim=2)
+        vv = vv.repeat_interleave(group, dim=2)
+    s = ((qh @ kk.permute(0, 2, 3, 1)) * head_dim ** -0.5)[:, :, 0]
+    s = s.float().masked_fill(~valid[:, None, :], NEG_INF)  # (B, H, S_loc)
+    m = s.amax(-1)
+    prob = torch.exp(s - m[..., None])
+    o = (prob.to(cd)[:, :, None] @ vv.transpose(1, 2))[:, :, 0].float()
+    return m[..., None], prob.sum(-1)[..., None], o[:, :, None]

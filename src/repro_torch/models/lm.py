@@ -13,8 +13,8 @@ names (``blk.attn["wq"]``, ``blk.ssm["in_proj"]``, ``blk.mlp["w_gate"]``,
 ...), and :mod:`.convert` carries the reference's stacked pytree across in
 both directions.  Every leaf is a float32 ``nn.Parameter`` that requires
 grad, so ``forward`` builds an autograd graph unless the caller runs it
-under ``torch.inference_mode()`` (every inference caller of the port does)
-or ``torch.no_grad()``.  Layers run in a Python loop; with grad enabled and
+under ``torch.inference_mode()`` (the one-device inference callers do)
+or ``torch.no_grad()`` (the prefill step, which may hold DTensors).  Layers run in a Python loop; with grad enabled and
 ``remat`` each block runs under ``torch.utils.checkpoint`` (the reference's
 ``jax.checkpoint(layer)``), so only the residual stream between blocks is
 kept for the backward pass.  ``decode_step`` always runs without grad.
@@ -29,11 +29,15 @@ likewise a stub.
 Sharded: under ``distributed.logical.axis_env(mesh)`` with the leaves and
 the batch as DTensors (``distributed.sharding``), the same code runs
 under DTensor dispatch.  The residual stream is hinted batch- and
-sequence-parallel between blocks, the MLP's hidden and the logits
-tensor-parallel, and when the vocabulary does not divide the model axis
-(``tp``) the head is padded to a multiple of it, the padded logits masked
-to ``NEG_INF`` (``keep_padded_vocab`` keeps them for the loss, whose
-``logsumexp`` they do not change).  With no mesh or ``tp == 1`` the
+sequence-parallel between blocks (gathered for each block's projections,
+each sub-block's output reduce-scattered back before the add), the MLP's
+hidden and the logits tensor-parallel, weights gathered over the batch
+axes before use (``fsdp_gather``), and when the vocabulary does not
+divide the model axis (``tp``) the head is padded to a multiple of it,
+the padded logits masked to ``NEG_INF`` (``keep_padded_vocab`` keeps them
+for the loss, whose ``logsumexp`` they do not change).  The sharded loss
+reduces each rank's vocabulary slice in place (``_sharded_nll``); decode
+settles the residual before each norm.  With no mesh or ``tp == 1`` the
 hints and paddings are no-ops.
 
 ``abstract_params`` / ``abstract_cache`` give the same structures on the
@@ -50,9 +54,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from ..distributed.logical import (captured_env, current_mesh, get_opt,
-                                   is_dtensor, replicate_like, replicated,
-                                   shard_hint, tp_size_of)
+from ..distributed.logical import (captured_env, current_mesh,
+                                   fsdp_gather, get_opt, is_dtensor,
+                                   local_map, pad_zeros, replicate_like,
+                                   replicated, shard_hint, spec_of,
+                                   tp_size_of)
 from .attention import NEG_INF, attn_decode, attn_forward, init_attn
 from .layers import COMPUTE_DTYPE, Initializer, rms_norm, silu
 from .moe import init_moe, moe_forward
@@ -173,16 +179,19 @@ def map_params(params: LM, fn: Callable[[str, torch.Tensor], torch.Tensor]
 # forward (train / prefill)
 # --------------------------------------------------------------------------
 def _mlp(mp, h2, cd):
-    g = silu(h2 @ mp["w_gate"].to(cd))
-    u = h2 @ mp["w_up"].to(cd)
+    g = silu(h2 @ fsdp_gather(mp["w_gate"].to(cd)))
+    u = h2 @ fsdp_gather(mp["w_up"].to(cd))
     g = shard_hint(g, "batch", None, "tp")
-    return (g * u) @ mp["w_down"].to(cd)
+    return (g * u) @ fsdp_gather(mp["w_down"].to(cd))
 
 
 def _block_forward(cfg: ArchConfig, bp: Block, x: torch.Tensor,
                    is_global: bool, *, block_causal: bool, chunk: int):
     fam = cfg.family
-    h = rms_norm(x, bp.ln1, cfg.norm_eps)
+    # the sequence-parallel residual gathered over the model axis for the
+    # block's projections (Megatron-SP's all-gather; torch 2.11's DTensor
+    # cannot flatten a sequence-sharded (B, S, D) into the GEMM's rows)
+    h = shard_hint(rms_norm(x, bp.ln1, cfg.norm_eps), "batch", None, None)
     mix = 0.0
     if fam in ("dense", "vlm", "audio", "moe"):
         mix = attn_forward(
@@ -207,19 +216,24 @@ def _block_forward(cfg: ArchConfig, bp: Block, x: torch.Tensor,
                         state=cfg.ssm_state, n_heads=cfg.ssm_heads,
                         head_dim=cfg.ssm_head_dim)
         mix = 0.5 * (attn_out + s)
-    x = x + mix
+    # each sub-block's output reduced (and scattered) to the residual's
+    # sequence-parallel layout before the add: a placement autograd keeps,
+    # so the gradient reaching the projections' backward is whole over the
+    # sequence again (torch 2.11 cannot flatten a sequence-sharded one)
+    x = x + shard_hint(mix, "batch", "sp", None)
 
     aux = replicate_like(torch.zeros((), dtype=torch.float32,
                                      device=x.device), x)
-    if fam == "moe":
-        h2 = rms_norm(x, bp.ln2, cfg.norm_eps)
-        m, aux = moe_forward(bp.moe, h2, n_experts=cfg.n_experts,
-                             top_k=cfg.top_k,
-                             capacity_factor=cfg.capacity_factor)
-        x = x + m
-    elif fam in ("dense", "vlm", "audio", "hybrid"):
-        h2 = rms_norm(x, bp.ln2, cfg.norm_eps)
-        x = x + _mlp(bp.mlp, h2, x.dtype)
+    if fam in ("dense", "vlm", "audio", "moe", "hybrid"):
+        h2 = shard_hint(rms_norm(x, bp.ln2, cfg.norm_eps),
+                        "batch", None, None)
+        if fam == "moe":
+            m, aux = moe_forward(bp.moe, h2, n_experts=cfg.n_experts,
+                                 top_k=cfg.top_k,
+                                 capacity_factor=cfg.capacity_factor)
+        else:
+            m = _mlp(bp.mlp, h2, x.dtype)
+        x = x + shard_hint(m, "batch", "sp", None)
     # sequence-parallel residual: the carries (what remat keeps) live
     # S-sharded over the model axis between blocks
     return shard_hint(x, "batch", "sp", None), aux
@@ -232,7 +246,8 @@ def _embed(params: LM, cfg: ArchConfig, tokens, cd):
         # before use), so each rank looks up its own tokens locally; an
         # embedding op, whose backward torch 2.11's DTensor can place for
         # batch-sharded tokens (an index's it cannot)
-        emb = torch.nn.functional.embedding(tokens, replicated(params.embed))
+        emb = shard_hint(torch.nn.functional.embedding(
+            tokens, replicated(params.embed)), "batch", None, None)
     else:
         emb = params.embed[tokens]
     return emb.to(cd) * (cfg.d_model ** 0.5)
@@ -248,12 +263,15 @@ def _logits(params: LM, x, cd, keep_padded_vocab: bool):
     tp = tp_size_of()
     if get_opt("head_pad") and tp > 1 and V % tp != 0:
         V_pad = (V + tp - 1) // tp * tp
-        head = torch.nn.functional.pad(head, (0, V_pad - V))
-        logits = shard_hint(x @ head.to(cd), "batch", None, "tp")
+        # the padded vocab sharded over the model axis before the GEMM, so
+        # each rank computes its own slice of the logits
+        head = shard_hint(pad_zeros(head, 1, V_pad), "batch", "tp")
+        logits = shard_hint(x @ fsdp_gather(head.to(cd)), "batch", None,
+                            "tp")
         pad = torch.arange(V_pad, device=x.device) >= V
         logits = logits.masked_fill(replicate_like(pad, logits), NEG_INF)
         return logits if keep_padded_vocab else logits[..., :V]
-    return shard_hint(x @ head.to(cd), "batch", None, "tp")
+    return shard_hint(x @ fsdp_gather(head.to(cd)), "batch", None, "tp")
 
 
 def forward(params: LM, cfg: ArchConfig, tokens,
@@ -290,7 +308,8 @@ def forward(params: LM, cfg: ArchConfig, tokens,
         else:
             x, aux = _block_forward(cfg, bp, x, l in glob, **kw)
         auxs.append(aux)
-    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    x = shard_hint(rms_norm(x, params.final_norm, cfg.norm_eps),
+                   "batch", None, None)
     logits = _logits(params, x, cd, keep_padded_vocab)
     if cfg.family == "vlm":
         logits = logits[:, image_embed.shape[1]:]
@@ -306,10 +325,40 @@ def loss_fn(params: LM, cfg: ArchConfig, tokens, labels,
                           keep_padded_vocab=True, **kw)
     logits = logits.float()
     labels = torch.as_tensor(labels, device=logits.device).long()
+    if is_dtensor(logits) and spec_of(logits)[-1] is not None:
+        return _sharded_nll(logits, labels) + aux_weight * aux
     logz = torch.logsumexp(logits, dim=-1, keepdim=True)
-    # kept (B, S, 1): a vocab-sharded gather's partial sum reduces there
     ll = torch.gather(logits, -1, labels[..., None])
     return (logz - ll).mean() + aux_weight * aux
+
+
+def _sharded_nll(logits, labels) -> torch.Tensor:
+    """The mean negative log-likelihood of DTensor ``logits`` (B, S, V)
+    whose vocab ``_logits`` shards over the model axis, without gathering
+    the vocab (DTensor would gather the global batch's logits onto every
+    rank for ``logsumexp`` and ``gather``): each rank reduces its own slice
+    to a maximum, a sum of exponentials and the logit of the labels it
+    holds (``local_map``), and those (B, S, shards) combine into the
+    log-partition as flash attention combines its blocks.  A vocab whole
+    on every rank (one rank, or no model axis) takes the one-device ops
+    instead, so a one-rank mesh keeps the one-device bits."""
+    spec = spec_of(logits)
+    V_loc = logits.to_local().shape[-1]
+    v0 = logits.device_mesh.get_local_rank("model") * V_loc
+
+    def reduce_slice(lg, lb):           # each (B, S, 1)
+        top = lg.detach().amax(-1, keepdim=True)
+        sumexp = torch.exp(lg - top).sum(-1, keepdim=True)
+        idx = lb - v0
+        mine = ((idx >= 0) & (idx < lg.shape[-1]))[..., None]
+        got = torch.gather(lg, -1, idx.clamp(0, lg.shape[-1] - 1)[..., None])
+        return top, sumexp, torch.where(mine, got, torch.zeros_like(got))
+    top, sumexp, ll = local_map(reduce_slice, (logits, labels),
+                                (spec, spec[:2]), (spec, spec, spec))
+    big = top.amax(-1, keepdim=True)
+    logz = big + torch.log((sumexp * torch.exp(top - big))
+                           .sum(-1, keepdim=True))
+    return (logz - ll.sum(-1, keepdim=True)).mean()
 
 
 # --------------------------------------------------------------------------
@@ -373,6 +422,10 @@ def decode_step(params: LM, cfg: ArchConfig, token, cache: dict,
     with torch.no_grad():
         x = _embed(params, cfg, token, cd)
         for l, bp in enumerate(params.layers):
+            # under a mesh the residual is settled (the row-parallel
+            # outputs' partial sums reduced) before each norm, or DTensor
+            # would carry the partial sums into the next projections
+            x = shard_hint(x, "batch", None, None)
             h = rms_norm(x, bp.ln1, cfg.norm_eps)
             if fam in ("dense", "vlm", "audio", "moe"):
                 a, _, _ = attn_decode(bp.attn, h, cache["k"][l],
@@ -401,6 +454,7 @@ def decode_step(params: LM, cfg: ArchConfig, token, cache: dict,
                 cache["conv"][l] = conv_c
                 cache["ssm"][l] = ssm_c
                 x = x + 0.5 * (a + y)
+            x = shard_hint(x, "batch", None, None)
             h2 = rms_norm(x, bp.ln2, cfg.norm_eps)
             if fam == "moe":
                 m, _ = moe_forward(bp.moe, h2, n_experts=cfg.n_experts,
@@ -409,6 +463,7 @@ def decode_step(params: LM, cfg: ArchConfig, token, cache: dict,
                 x = x + m
             else:
                 x = x + _mlp(bp.mlp, h2, cd)
-        x = rms_norm(x, params.final_norm, cfg.norm_eps)
-        logits = x @ params.head().to(cd)
+        x = rms_norm(shard_hint(x, "batch", None, None), params.final_norm,
+                     cfg.norm_eps)
+        logits = x @ fsdp_gather(params.head().to(cd))
     return logits, cache

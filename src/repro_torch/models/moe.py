@@ -44,7 +44,8 @@ from typing import Tuple
 
 import torch
 
-from ..distributed.logical import (get_opt, group_local, shard_hint,
+from ..distributed.logical import (fsdp_gather, get_opt, group_local,
+                                   pad_zeros, reshape_hinted, shard_hint,
                                    tp_size_of)
 from .layers import Initializer, silu
 
@@ -129,11 +130,11 @@ def moe_forward(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     cd = x.dtype
     N = B * S
     E, k = n_experts, top_k
-    xf = x.reshape(N, D)
+    xf = reshape_hinted(x, (N, D), "batch", None, None)
 
     # the reference's jitted ``einsum(...).astype(float32)`` fuses the cast
     # into the product: the router logits are never rounded to ``cd``
-    logits = xf.float() @ p["router"].to(cd).float()
+    logits = xf.float() @ fsdp_gather(p["router"].to(cd)).float()
     probs = torch.softmax(logits, dim=-1)
 
     # expert padding: phantom experts (zero weights, zero probability —
@@ -142,9 +143,8 @@ def moe_forward(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     tp = tp_size_of()
     if get_opt("expert_pad") and tp > 1 and E % tp != 0:
         e_pad = (E + tp - 1) // tp * tp
-        probs = torch.nn.functional.pad(probs, (0, e_pad - E))
-        padw = (0, 0, 0, 0, 0, e_pad - E)
-        w_gate, w_up, w_down = (torch.nn.functional.pad(w, padw)
+        probs = pad_zeros(probs, 1, e_pad)
+        w_gate, w_up, w_down = (pad_zeros(w, 0, e_pad)
                                 for w in (w_gate, w_up, w_down))
         E = e_pad
     gate_vals, expert_ids, first = group_local(
@@ -161,15 +161,19 @@ def moe_forward(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     C = int(Ng * k * capacity_factor / E) + 1
     buf, slot, keep, gates_s, places = group_local(
         lambda xg, eg, gg: _dispatch(xg, eg, gg, E, C, k),
-        xf.reshape(G, Ng, D), expert_ids.reshape(G, Ng * k),
+        reshape_hinted(xf, (G, Ng, D), "batch", None, None),
+        expert_ids.reshape(G, Ng * k),
         gate_vals.reshape(G, Ng * k))
     buf = shard_hint(buf, "batch", "tp", None, None)  # G->data, E->model
 
     # ---- expert FFN, batched over experts ----
-    be = buf.transpose(0, 1).reshape(E, G * C, D)
-    h = silu(be @ w_gate.to(cd)) * (be @ w_up.to(cd))
+    be = reshape_hinted(buf.transpose(0, 1), (E, G * C, D),
+                        "tp", "batch", None, None)
+    h = silu(be @ fsdp_gather(w_gate.to(cd))) \
+        * (be @ fsdp_gather(w_up.to(cd)))
     h = shard_hint(h, "tp", "batch", None)
-    out_buf = (h @ w_down.to(cd)).reshape(E, G, C, D).transpose(0, 1)
+    out_buf = reshape_hinted(h @ fsdp_gather(w_down.to(cd)), (E, G, C, D),
+                             "tp", "batch", None, None).transpose(0, 1)
     out_buf = shard_hint(out_buf, "batch", "tp", None, None)
 
     # ---- gather + combine (group-local) ----

@@ -10,9 +10,13 @@ product, then a batched GEMM), so no six-dimensional intermediate exists.
 Following mamba2, the short causal conv runs over the concatenated (x, B, C)
 channels, and the output is RMS-norm-gated by z before out-projection.
 
-Under a mesh the heads and ``d_inner`` are hinted tensor-parallel, as in
-the reference, and the chunk mask and the initial state become replicated
-DTensors on the input's mesh; with no mesh the hints are no-ops.
+Under a mesh the scan (and the decode step) run on each rank's (batch,
+heads) shard through ``logical.local_map``: the heads and ``d_inner``
+tensor-parallel where the head count divides the model axis, as the
+reference hints them, the sequence whole, ``B`` and ``C`` replicated over
+the model axis.  DTensor then meets none of the scan's batched matmuls
+over sharded heads (torch 2.11 has no rule for them) nor its chunk views
+of a sequence-sharded tensor.  With no mesh the scan is one plain call.
 """
 from __future__ import annotations
 
@@ -21,7 +25,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..distributed.logical import group_local, replicate_like, shard_hint
+from ..distributed.logical import (fsdp_gather, hint_spec, is_dtensor,
+                                   local_map)
 from .layers import Initializer, rms_norm, silu
 
 __all__ = ["init_ssm", "ssm_forward", "ssm_decode", "init_ssm_cache"]
@@ -44,7 +49,7 @@ def init_ssm(ini: Initializer, d_model: int, d_inner: int, n_heads: int,
 
 
 def _split_proj(p, u, d_inner, state, n_heads, cd):
-    zxbcdt = u @ p["in_proj"].to(cd)
+    zxbcdt = u @ fsdp_gather(p["in_proj"].to(cd))
     z, xbc, dt = torch.split(
         zxbcdt, [d_inner, d_inner + 2 * state, n_heads], dim=-1)
     return z, xbc, dt
@@ -66,6 +71,17 @@ def _causal_conv(p, xbc, cd, conv_state: Optional[torch.Tensor] = None):
     return silu(out + p["conv_b"].to(cd)), new_state
 
 
+def _head_axes(x, n_heads: int):
+    """The batch dim's axes and the heads' model axis (``None`` where the
+    head count does not divide it) under ``x``'s mesh; no mesh: ``None``s,
+    which ``local_map`` then never reads."""
+    if not is_dtensor(x):
+        return None, None
+    b, _, t = hint_spec((x.shape[0], 1, n_heads), ("batch", None, "tp"),
+                        x.device_mesh)
+    return b, t
+
+
 def ssm_forward(p: dict, u: torch.Tensor, *, d_inner: int, state: int,
                 n_heads: int, head_dim: int, chunk: int = 256
                 ) -> torch.Tensor:
@@ -77,33 +93,47 @@ def ssm_forward(p: dict, u: torch.Tensor, *, d_inner: int, state: int,
         raise ValueError(f"sequence length {S} is not a multiple of the "
                          f"SSD chunk {chunk}")
     cd = u.dtype
-    f32 = torch.float32
     z, xbc, dt = _split_proj(p, u, d_inner, state, n_heads, cd)
     xbc, _ = _causal_conv(p, xbc, cd)
     x, Bm, Cm = torch.split(xbc, [d_inner, state, state], dim=-1)
-    x = x.reshape(B, S, n_heads, head_dim)
-    x = shard_hint(x, "batch", None, "tp", None)
+    b, t = _head_axes(x, n_heads)
+    hs, bs, ps = (b, None, t), (b, None, None), (t,)
+    y = local_map(
+        lambda *a: _ssd_scan(*a, head_dim=head_dim, chunk=chunk),
+        (x, dt, Bm, Cm, p["dt_bias"], p["A_log"], p["D"]),
+        (hs, hs, bs, bs, ps, ps, ps), (hs,))          # (B, S, d_inner)
+    y = rms_norm(y, p["out_norm"]) * silu(z)
+    return y @ fsdp_gather(p["out_proj"].to(cd))
 
-    dt = F.softplus(dt.float() + p["dt_bias"].float())           # (B,S,H)
-    A = -torch.exp(p["A_log"].float())                           # (H,)
+
+def _ssd_scan(x, dt, Bm, Cm, dt_bias, A_log, D_skip, *, head_dim, chunk):
+    """The chunked SSD on (B, S, H·P) inputs (one rank's heads under a
+    mesh): (B, S, H·P) outputs in ``x``'s dtype."""
+    B, S, _ = x.shape
+    H, P, N = dt.shape[-1], head_dim, Bm.shape[-1]
+    cd = x.dtype
+    f32 = torch.float32
+    x = x.reshape(B, S, H, P)
+
+    dt = F.softplus(dt.float() + dt_bias.float())                # (B,S,H)
+    A = -torch.exp(A_log.float())                                # (H,)
     da = dt * A[None, None, :]                                   # (B,S,H) <= 0
 
     nc = S // chunk
-    Q, H, P, N = chunk, n_heads, head_dim, state
+    Q = chunk
     xc = x.reshape(B, nc, Q, H, P)
     Bc = Bm.reshape(B, nc, Q, N).to(cd)
     Cc = Cm.reshape(B, nc, Q, N).to(cd)
     dac = da.reshape(B, nc, Q, H)
     dtc = dt.reshape(B, nc, Q, H)
 
-    # no DTensor rule for cumsum's backward (flip): run it group-local
-    cum = group_local(lambda d: torch.cumsum(d, dim=2), dac)     # (B,nc,Q,H)
+    cum = torch.cumsum(dac, dim=2)                               # (B,nc,Q,H)
     # intra-chunk decay L[i,j] = exp(cum_i - cum_j), i >= j
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]          # (B,nc,Q,Q,H)
-    tri = torch.ones((Q, Q), dtype=torch.bool, device=u.device).tril()
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
     # mask in log-space BEFORE exp, as the reference does
-    Lmat = torch.exp(seg.masked_fill(
-        replicate_like(~tri[None, None, :, :, None], seg), float("-inf")))
+    Lmat = torch.exp(seg.masked_fill(~tri[None, None, :, :, None],
+                                     float("-inf")))
     del seg
 
     xdt = xc * dtc[..., None].to(cd)                             # (B,nc,Q,H,P)
@@ -123,8 +153,7 @@ def ssm_forward(p: dict, u: torch.Tensor, *, d_inner: int, state: int,
     S_chunk = (xw.reshape(B, nc, H * P, Q) @ Bc.float()
                ).reshape(B, nc, H, P, N)                         # (B,nc,H,P,N)
 
-    h = replicate_like(torch.zeros((B, H, P, N), dtype=f32, device=u.device),
-                       S_chunk)
+    h = torch.zeros((B, H, P, N), dtype=f32, device=x.device)
     h_prev = []
     for n in range(nc):                                          # emit PREVIOUS
         h_prev.append(h)
@@ -138,11 +167,8 @@ def ssm_forward(p: dict, u: torch.Tensor, *, d_inner: int, state: int,
         * decay_from_start[..., None]
 
     y = (y_intra + y_inter).reshape(B, S, H, P)
-    y = y + x.float() * p["D"].float()[None, None, :, None]
-    y = y.reshape(B, S, d_inner).to(cd)
-    y = shard_hint(y, "batch", None, "tp")
-    y = rms_norm(y, p["out_norm"]) * silu(z)
-    return y @ p["out_proj"].to(cd)
+    y = y + x.float() * D_skip.float()[None, None, :, None]
+    return y.reshape(B, S, H * P).to(cd)
 
 
 def init_ssm_cache(B: int, d_inner: int, state: int, n_heads: int,
@@ -164,10 +190,29 @@ def ssm_decode(p: dict, u: torch.Tensor, conv_state: torch.Tensor,
     z, xbc, dt = _split_proj(p, u, d_inner, state, n_heads, cd)
     xbc, new_conv = _causal_conv(p, xbc, cd, conv_state=conv_state)
     x, Bm, Cm = torch.split(xbc[:, 0], [d_inner, state, state], dim=-1)
-    x = x.reshape(B, n_heads, head_dim)
+    b, t = _head_axes(u, n_heads)
+    st = (b, t, None, None)
+    y, h = local_map(
+        lambda *a: _ssd_step(*a, head_dim=head_dim),
+        (x, dt[:, 0], Bm, Cm, ssm_state, p["dt_bias"], p["A_log"], p["D"]),
+        ((b, t), (b, t), (b, None), (b, None), st, (t,), (t,), (t,)),
+        ((b, None, t), st))
+    y = rms_norm(y, p["out_norm"]) * silu(z)
+    out = y @ fsdp_gather(p["out_proj"].to(cd))
+    return out, new_conv.to(conv_state.dtype), h
 
-    dtv = F.softplus(dt[:, 0].float() + p["dt_bias"].float())    # (B,H)
-    A = -torch.exp(p["A_log"].float())
+
+def _ssd_step(x, dt, Bm, Cm, ssm_state, dt_bias, A_log, D_skip, *,
+              head_dim):
+    """One token of the SSD recurrence on (B, H·P) inputs (one rank's heads
+    under a mesh): the (B, 1, H·P) output in ``x``'s dtype and the new
+    (B, H, P, N) float32 state."""
+    B = x.shape[0]
+    H = dt.shape[-1]
+    cd = x.dtype
+    x = x.reshape(B, H, head_dim)
+    dtv = F.softplus(dt.float() + dt_bias.float())               # (B,H)
+    A = -torch.exp(A_log.float())
     da = torch.exp(dtv * A[None, :])                             # (B,H)
 
     x32 = x.float()
@@ -175,8 +220,5 @@ def ssm_decode(p: dict, u: torch.Tensor, conv_state: torch.Tensor,
     upd = xdt[..., None] * Bm.float()[:, None, None, :]          # (B,H,P,N)
     h = ssm_state * da[:, :, None, None] + upd
     y = (h @ Cm.float()[:, None, :, None])[..., 0]               # (B,H,P)
-    y = y + x32 * p["D"].float()[None, :, None]
-    y = y.reshape(B, 1, d_inner).to(cd)
-    y = rms_norm(y, p["out_norm"]) * silu(z)
-    out = y @ p["out_proj"].to(cd)
-    return out, new_conv.to(conv_state.dtype), h
+    y = y + x32 * D_skip.float()[None, :, None]
+    return y.reshape(B, 1, H * head_dim).to(cd), h

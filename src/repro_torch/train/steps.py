@@ -9,7 +9,9 @@ reference's names; ``m`` and ``v`` are modules of the LM's layout.  The
 metrics ``loss`` and ``grad_norm`` stay 0-d tensors on the device until
 the caller reads them.
 
-The prefill and decode steps run under ``torch.inference_mode()``.
+The prefill and decode steps run under ``torch.no_grad()`` (not
+``inference_mode``: a DTensor view of a parameter, such as a tied head's
+transpose, fails inside it).
 
 Sharded: ``distribute_train_state(state, mesh)`` places the parameters and
 moments by ``distributed.sharding.param_specs`` as DTensors; the same step
@@ -28,7 +30,8 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..distributed.compression import compress_decompress_grads
-from ..distributed.logical import distribute_full, full_tensor, is_dtensor
+from ..distributed.logical import (distribute_full, full_tensor, is_dtensor,
+                                   shard_hint)
 from ..distributed.sharding import distribute_params, param_specs
 from ..models import lm
 from ..models.convert import reference_path
@@ -135,7 +138,7 @@ def make_prefill_step(cfg: ArchConfig, attn_chunk: int = 512,
                       block_causal: bool = True) -> Callable:
     """Batched prefill: logits for a full prompt (inference forward)."""
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def prefill_step(params, batch):
         logits, _ = lm.forward(params, cfg, batch["tokens"],
                                image_embed=batch.get("image_embed"),
@@ -152,7 +155,10 @@ def make_decode_step(cfg: ArchConfig) -> Callable:
 
     def decode_step(params, token, cache, pos):
         logits, cache = lm.decode_step(params, cfg, token, cache, pos)
-        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        # under a mesh each rank's rows whole over the vocab first: DTensor's
+        # argmax over a vocab-sharded dim fails on a (pod, data, model) mesh
+        last = shard_hint(logits[:, -1], "batch", None)
+        next_tok = torch.argmax(last, dim=-1).to(torch.int32)
         return next_tok[:, None], logits, cache
 
     return decode_step

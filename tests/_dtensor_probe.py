@@ -2,15 +2,17 @@
 
     PYTHONPATH=src python tests/_dtensor_probe.py
 
-Starts CPU gloo worlds (1, 1), (1, 2) and (2, 1), one process a rank
-rendezvoused through a ``FileStore`` in a temporary directory, and runs
-one float32 train step of several reduced archs on each (at tp > 1 with 5
-heads, 5 KV heads, vocab 257 and 5 experts, so every padding path fires;
-``granite_8b:padS`` pads the sequence to the attention chunk).  Prints one
-``WORLD`` line per (grid, arch): ``OK`` with the loss, or ``FAIL`` with
-the error DTensor raised.  It is a probe of a torch build (DTensor's
-sharding rules differ between versions), not a test: a failure is
-reported and the next arch runs.  Imports neither jax nor the reference.
+Starts CPU gloo worlds (1, 1), (1, 2), (2, 1) and (1, 4), one process a
+rank rendezvoused through a ``FileStore`` in a temporary directory, and
+runs one float32 train step of every reduced arch on each: at tp = 2 with
+5 heads, 5 KV heads, vocab 257 and 5 experts, so every padding path fires;
+at tp = 4 with 6 heads and 2 KV heads (KV heads below tp, heads that do
+not divide it) and 5 experts; ``granite_8b:padS`` pads the sequence to the
+attention chunk.  Prints one ``WORLD`` line per (grid, arch): ``OK`` with
+the loss, or ``FAIL`` with the error DTensor raised.  It is a probe of a
+torch build (DTensor's sharding rules differ between versions), not a
+test: a failure is reported and the next arch runs.  Imports neither jax
+nor the reference.
 """
 import dataclasses
 import datetime
@@ -31,17 +33,17 @@ from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import lm
 from repro_torch.train import steps
 
-GRIDS = ((1, 1), (1, 2), (2, 1))
-TP_ARCHS = ("granite_8b", "granite_moe_3b_a800m", "hymba_1p5b",
-            "mamba2_2p7b")
-ODD = dict(n_heads=5, n_kv_heads=5, vocab=257)
+GRIDS = ((1, 1), (1, 2), (2, 1), (1, 4))
+# odd widths a model-axis size: every padding path, KV heads below tp
+ODD = {2: dict(n_heads=5, n_kv_heads=5, vocab=257),
+       4: dict(n_heads=6, n_kv_heads=2, vocab=257)}
 
 
 def _config(arch, tp):
     cfg = get_config(arch).reduced()
     if tp > 1 and cfg.family != "ssm":
         cfg = dataclasses.replace(
-            cfg, **ODD, **({"n_experts": 5} if cfg.n_experts else {}))
+            cfg, **ODD[tp], **({"n_experts": 5} if cfg.n_experts else {}))
     return cfg
 
 
@@ -72,9 +74,8 @@ def _rank(rank, grid, store, queue):
                             timeout=datetime.timedelta(seconds=120))
     lm.COMPUTE_DTYPE = torch.float32
     mesh = make_local_mesh(*grid, device="cpu")
-    archs = ALL_ARCHS if world == 1 else TP_ARCHS
     lines = []
-    for name in tuple(archs) + ("granite_8b:padS",):
+    for name in tuple(ALL_ARCHS) + ("granite_8b:padS",):
         arch, _, pad = name.partition(":")
         try:
             lines.append(f"WORLD {grid} {name} OK loss "

@@ -27,7 +27,8 @@ from repro_torch.distributed.logical import (axis_env, distribute_full,
                                              full_tensor, perf_env,
                                              placements_for)
 from repro_torch.distributed.sharding import (NamedSharding, batch_specs,
-                                             distribute_params, param_specs)
+                                             cache_specs, distribute_params,
+                                             param_specs)
 from repro_torch.launch import mesh as port_mesh
 from repro_torch.launch import train as port_launch
 from repro_torch.models import lm
@@ -41,6 +42,8 @@ ODD = {
             dict(n_heads=5, n_kv_heads=5, vocab=257, n_experts=5, top_k=2)),
     "hybrid": ("hymba_1p5b", dict(n_heads=5, n_kv_heads=5, vocab=257)),
 }
+# tp = 4 on a (1, 4) world: 6 heads do not divide it, 2 KV heads fall below
+TP4 = dict(n_heads=6, n_kv_heads=2)
 B, S, CHUNK = 4, 16, 16
 OPT = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10, schedule="const")
 LAUNCH = ["--arch", "granite_8b", "--reduced", "--steps", "3", "--batch",
@@ -211,7 +214,70 @@ def task_grid(rank, spec, mesh):
     return res, meta
 
 
-TASKS = {"grid": task_grid}
+def _decode_pair(cfg, mesh):
+    """Two float32 decode steps (a lockstep int position, then one position
+    a lane, so the new keys land in several ranks' sequence blocks) on one
+    device and on ``mesh`` from the same seeded parameters and cache: the
+    logits and the updated caches."""
+    old = lm.COMPUTE_DTYPE
+    lm.COMPUTE_DTYPE = torch.float32
+    try:
+        gen = torch.Generator().manual_seed(5)
+        cache = {k: torch.randn(v.shape, generator=gen)
+                 for k, v in lm.init_cache(cfg, B, S, dtype=torch.float32,
+                                           device="cpu").items()}
+        toks = [tokens_for(cfg.vocab, seed=s)[:, :1] for s in (6, 7)]
+        poss = [5, torch.tensor([6, 2, 9, 15])]
+        one = lm.init_params(cfg, 0, device="cpu")
+        c1 = {k: v.clone() for k, v in cache.items()}
+        two = lm.init_params(cfg, 0, device="cpu")
+        distribute_params(two, param_specs(two, mesh), mesh)
+        cs = cache_specs(cfg, cache, mesh)
+        c2 = {k: distribute_full(v.clone(), mesh, placements_for(cs[k], mesh))
+              for k, v in cache.items()}
+        bs = batch_specs(mesh)
+        out = {}
+        for i, (tok, pos) in enumerate(zip(toks, poss)):
+            l1, c1 = lm.decode_step(one, cfg, tok, c1, pos)
+            t2 = distribute_full(tok, mesh, placements_for(bs["tokens"], mesh))
+            with axis_env(mesh):
+                l2, c2 = lm.decode_step(two, cfg, t2, c2, pos)
+            out[f"logits1/{i}"] = l1.numpy()
+            out[f"logits2/{i}"] = full_tensor(l2).numpy()
+        for k in cache:
+            out[f"cache1/{k}"] = c1[k].numpy()
+            out[f"cache2/{k}"] = full_tensor(c2[k]).numpy()
+        return out
+    finally:
+        lm.COMPUTE_DTYPE = old
+
+
+def task_tp4(rank, spec, mesh):
+    """tp = 4 with 6 heads and 2 KV heads: the float32 train step against
+    one device (granite_8b reduced), and the flash-decode step against one
+    device (granite_8b and hymba reduced)."""
+    cfg = dataclasses.replace(get_config("granite_8b").reduced(), **TP4)
+    f32, _, placed = _step_pair(cfg, mesh, torch.float32)
+    res = {f"f32/{k}": v for k, v in f32.items()}
+    for arch in ("granite_8b", "hymba_1p5b"):
+        dcfg = dataclasses.replace(get_config(arch).reduced(), **TP4)
+        res.update({f"decode/{arch}/{k}": v
+                    for k, v in _decode_pair(dcfg, mesh).items()})
+    return res, {"placements": placed}
+
+
+def task_one(rank, spec, mesh):
+    """A one-rank mesh runs one device's local kernels: the bf16 train
+    step of granite_8b and hymba reduced, for the bits."""
+    res = {}
+    for arch in ("granite_8b", "hymba_1p5b"):
+        out, _, _ = _step_pair(get_config(arch).reduced(), mesh,
+                               torch.bfloat16)
+        res.update({f"{arch}/{k}": v for k, v in out.items()})
+    return res, {}
+
+
+TASKS = {"grid": task_grid, "tp4": task_tp4, "one": task_one}
 
 
 def _rank(rank, spec):

@@ -7,6 +7,12 @@ timeout.  One world a grid:
 
 * every grid: the sharded train step against the one-device step in
   float32 (bf16 on (2, 1));
+* (1, 1), its own world: the bf16 train step on a one-rank mesh equals
+  one device's bit for bit (the same local kernels);
+* (1, 4), its own world: tp = 4 with 6 heads and 2 KV heads (heads that
+  do not divide the model axis, KV heads below it), the float32 train
+  step and two flash-decode steps (granite_8b and hymba reduced) against
+  one device;
 * (2, 2): the int8 round trip on sharded gradients and a checkpoint save;
 * (1, 2) and (2, 1): that checkpoint restored onto the grid (placements
   of the like-state, and the reference's ``shardings=``), and
@@ -57,10 +63,10 @@ def _env():
                                             os.path.join(REPO, "tests")]))
 
 
-def _start_world(d, grid, ckpt):
-    out = d / f"grid_{grid[0]}x{grid[1]}"
+def _start_world(d, grid, ckpt, task="grid"):
+    out = d / f"{task}_{grid[0]}x{grid[1]}"
     out.mkdir()
-    spec = {"task": "grid", "grid": list(grid), "store": str(out / "store"),
+    spec = {"task": task, "grid": list(grid), "store": str(out / "store"),
             "timeout": TIMEOUT - 60, "out": str(out), "ckpt": str(ckpt)}
     path = out / "spec.json"
     path.write_text(json.dumps(spec))
@@ -158,6 +164,8 @@ def worlds(tmp_path_factory):
     d = tmp_path_factory.mktemp("worlds")
     ckpt = d / "ckpt22"
     started = {g: _start_world(d, g, ckpt) for g in GRIDS}
+    started["tp4"] = _start_world(d, (1, 4), ckpt, task="tp4")
+    started["one"] = _start_world(d, (1, 1), ckpt, task="one")
     # the odd configs' parameters and tokens for the reference, meanwhile
     spec = {"odd": W.ODD, "params": {}, "tokens": {},
             "port_ckpt": str(ckpt), "ref_ckpt": str(d / "ref_ckpt"),
@@ -192,9 +200,7 @@ def _names(res, prefix):
 
 
 # ------------------------------------------------------------ step parity
-@pytest.mark.parametrize("grid", GRIDS, ids=str)
-def test_sharded_train_step_matches_one_device_f32(worlds, grid):
-    res, meta = worlds[grid]
+def _check_f32_step(res):
     l1, l2 = res["f32/loss"]
     assert abs(l1 - l2) <= F32 * abs(l1)
     n1, n2 = res["f32/gnorm"]
@@ -207,12 +213,63 @@ def test_sharded_train_step_matches_one_device_f32(worlds, grid):
         assert np.abs(p1 - p2)[decided].max(initial=0) \
             <= F32 * np.abs(p1).max(), n
         np.testing.assert_allclose(p2, p1, rtol=2e-2, atol=2e-3, err_msg=n)
+
+
+@pytest.mark.parametrize("grid", GRIDS, ids=str)
+def test_sharded_train_step_matches_one_device_f32(worlds, grid):
+    res, meta = worlds[grid]
+    _check_f32_step(res)
     # the leaves were really sharded on the grid's axes
     placed = meta["placements"]
     if grid[1] > 1:
         assert "Shard(dim=1)" in placed["layers.0.attn.wq"]
     if grid[0] > 1:
         assert placed["layers.0.attn.wq"].startswith("(Shard(dim=0)")
+
+
+def test_sharded_train_step_matches_one_device_f32_tp4(worlds):
+    """6 heads and 2 KV heads at tp = 4: the heads replicate over the model
+    axis before each projection's split, the attention runs on 8 padded
+    heads, and the step still equals one device's."""
+    res, meta = worlds["tp4"]
+    _check_f32_step(res)
+    placed = meta["placements"]
+    assert "Shard(dim=1)" not in placed["layers.0.attn.wq"]
+    assert "Shard(dim=1)" not in placed["layers.0.attn.wk"]
+    assert "Shard(dim=1)" in placed["layers.0.mlp.w_gate"]
+
+
+@pytest.mark.parametrize("arch", ["granite_8b", "hymba_1p5b"])
+def test_flash_decode_matches_one_device_tp4(worlds, arch):
+    """Two decode steps with the cache's sequence split over 4 ranks: the
+    logits, and every cache leaf written in place (the new keys and values
+    land in the rank that holds their slot)."""
+    res, _ = worlds["tp4"]
+    pre = f"decode/{arch}/"
+    for i in range(2):
+        l1, l2 = res[f"{pre}logits1/{i}"], res[f"{pre}logits2/{i}"]
+        assert np.abs(l1 - l2).max() <= F32 * np.abs(l1).max(), i
+    names = _names(res, f"{pre}cache1/")
+    assert names
+    for k in names:
+        c1, c2 = res[f"{pre}cache1/{k}"], res[f"{pre}cache2/{k}"]
+        assert np.abs(c1 - c2).max() <= F32 * np.abs(c1).max(), k
+
+
+@pytest.mark.parametrize("arch", ["granite_8b", "hymba_1p5b"])
+def test_one_rank_mesh_train_step_is_one_device_bit_for_bit(worlds, arch):
+    res, _ = worlds["one"]
+    pre = f"{arch}/"
+    np.testing.assert_array_equal(res[pre + "loss"][0], res[pre + "loss"][1])
+    np.testing.assert_array_equal(res[pre + "gnorm"][0],
+                                  res[pre + "gnorm"][1])
+    names = _names(res, pre + "p1/")
+    assert names
+    for n in names:
+        np.testing.assert_array_equal(res[f"{pre}g2/{n}"],
+                                      res[f"{pre}g1/{n}"], err_msg=n)
+        np.testing.assert_array_equal(res[f"{pre}p2/{n}"],
+                                      res[f"{pre}p1/{n}"], err_msg=n)
 
 
 def test_sharded_train_step_matches_one_device_bf16(worlds):

@@ -9,13 +9,14 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-# chip_smoke.py, the gloo-world worker of the port's tests, the DTensor
-# probe and the LM A/B timer, and the bf16 and float32 contracts
-# chip_smoke shares with the tests
+# chip_smoke.py, the gloo-world and dry-run workers of the port's tests,
+# the DTensor probe and the LM A/B timer, and the bf16 and float32
+# contracts chip_smoke shares with the tests
 FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                      ROOT / "tests" / "_lm_contract.py",
                                      ROOT / "tests" / "_f32_contract.py",
                                      ROOT / "tests" / "_torch_dist_worker.py",
+                                     ROOT / "tests" / "_torch_dryrun_cells.py",
                                      ROOT / "tests" / "_dtensor_probe.py",
                                      ROOT / "tests" / "_lm_ab.py"]
 
@@ -45,7 +46,7 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
 
 # the application layer, the observability, snapshot and serving layers
 # over it, the out-of-core modules, the LM serving and training paths, the
-# LM's sharding layer and the example twins
+# LM's sharding layer, the dry-run tools and the example twins
 LM_MODULES = (
     "repro_torch.configs", "repro_torch.configs.base",
     "repro_torch.configs.command_r_35b", "repro_torch.configs.granite_34b",
@@ -66,7 +67,8 @@ LM_MODULES = (
     "repro_torch.train.fault_tolerance", "repro_torch.launch.train",
     "repro_torch.distributed", "repro_torch.distributed.compression",
     "repro_torch.train_lm_e2e", "repro_torch.distributed.logical",
-    "repro_torch.distributed.sharding", "repro_torch.launch.mesh")
+    "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
+    "repro_torch.launch.inputs", "repro_torch.launch.dryrun")
 SLICE_MODULES = LM_MODULES + (
     "repro_torch.applications", "repro_torch.applications.embed",
     "repro_torch.applications.imputation",
