@@ -25,6 +25,17 @@ train-side top-k and squared row sums take the host CSR factors instead.
 Results are tensors on the engine's device, in the engine's dtype (top-k
 values in float64, as the reference's scipy engine gives them).
 
+With regions on (``obs.trace.set_regions``), ``topk`` and
+``squared_row_sums`` mark their phases as ``torch.profiler`` ranges:
+``engine.topk`` / ``engine.squared_row_sums`` around each call,
+``engine.k2`` around each block kernel call, ``engine.select`` around each
+top-k selection, ``engine.spill_read`` around the tie rule's host read and
+``engine.spill_redo`` around its exact redo, ``engine.class_ids`` around
+the class one-hot's build and ``engine.class_sums`` around each block's
+squares and class sums.  Each ``topk`` call on dense blocks adds its rows
+and the rows the tie rule redid to the process-wide counters
+``engine_topk_rows_total`` and ``engine_topk_spill_rows_total``.
+
 With several cards, products on the training rows take the sharded path
 (``torch_ops.sharded_swlc_matmat`` over ``torch_ops.default_mesh()``: rows
 split over the cards), as the reference's jax engine does over its
@@ -61,6 +72,7 @@ from ..kernels.block_prox.ops import (LEAF_DENSITY_MAX, LeafIndex,
                                       block_prox, build_leaf_index,
                                       leaf_density)
 from ..obs.metrics import global_registry
+from ..obs.trace import region
 from . import torch_ops
 from .context import EnsembleContext
 from .factorization import (full_kernel, prefix_leaf_contraction,
@@ -499,12 +511,13 @@ class ProximityEngine:
         (or ``cols``): in the kernel's leaf-collision form through the
         cached index on a CUDA engine in leaf mode, else in its dense
         form."""
-        if cols is not None:
-            c = self._tensor(cols, torch.int64)
-            return block_prox(gl_q, q, self.gl[c], self.w[c])
-        index = self.leaf_index() if self.device.type == "cuda" \
-            and self.leaf_mode() else None
-        return block_prox(gl_q, q, self.gl, self.w, index=index)
+        with region("engine.k2"):
+            if cols is not None:
+                c = self._tensor(cols, torch.int64)
+                return block_prox(gl_q, q, self.gl[c], self.w[c])
+            index = self.leaf_index() if self.device.type == "cuda" \
+                and self.leaf_mode() else None
+            return block_prox(gl_q, q, self.gl, self.w, index=index)
 
     def kernel_block(self, rows=None, cols=None, X_rows=None) -> torch.Tensor:
         """Dense P[rows, cols] (rows may be an OOS batch via X_rows)."""
@@ -558,30 +571,35 @@ class ProximityEngine:
         Dense device blocks, or host CSR row blocks for large train-side
         jobs on a CPU engine — never a full dense P.
         """
-        qs = self.query_state(X)
-        if class_ids is not None:
-            class_ids = np.asarray(class_ids, dtype=np.int64)
-            if n_classes is None:
-                n_classes = int(class_ids.max()) + 1
-        if self._sparse_train(X):
-            return self._tensor(self._squared_row_sums_csr(
-                qs.Q, class_ids, n_classes, self._budget_block(block)))
-        onehot = None
-        if class_ids is not None:
-            onehot = torch.zeros((self.n_ref, n_classes),
-                                 dtype=self._torch_dtype, device=self.device)
-            onehot[torch.arange(self.n_ref, device=self.device),
-                   self._tensor(class_ids, torch.int64)] = 1.0
-        shape = (qs.n,) if onehot is None else (qs.n, n_classes)
-        out = torch.zeros(shape, dtype=self._torch_dtype, device=self.device)
-        for i0, i1, B in self._dense_blocks(qs, block):
-            B2 = B * B
-            # _SUM_ROWS rows a reduction, at rows aligned to its multiples
-            for r0 in range(0, i1 - i0, _SUM_ROWS):
-                part = B2[r0:r0 + _SUM_ROWS]
-                out[i0 + r0:i0 + r0 + part.shape[0]] = \
-                    part.sum(dim=1) if onehot is None else part @ onehot
-        return out
+        with region("engine.squared_row_sums"):
+            qs = self.query_state(X)
+            if self._sparse_train(X):
+                class_ids, n_classes = _class_array(class_ids, n_classes)
+                return self._tensor(self._squared_row_sums_csr(
+                    qs.Q, class_ids, n_classes, self._budget_block(block)))
+            onehot = None
+            if class_ids is not None:
+                with region("engine.class_ids"):
+                    class_ids, n_classes = _class_array(class_ids, n_classes)
+                    onehot = torch.zeros((self.n_ref, n_classes),
+                                         dtype=self._torch_dtype,
+                                         device=self.device)
+                    onehot[torch.arange(self.n_ref, device=self.device),
+                           self._tensor(class_ids, torch.int64)] = 1.0
+            shape = (qs.n,) if onehot is None else (qs.n, n_classes)
+            out = torch.zeros(shape, dtype=self._torch_dtype,
+                              device=self.device)
+            for i0, i1, B in self._dense_blocks(qs, block):
+                with region("engine.class_sums"):
+                    B2 = B * B
+                    # _SUM_ROWS rows a reduction, at rows aligned to its
+                    # multiples
+                    for r0 in range(0, i1 - i0, _SUM_ROWS):
+                        part = B2[r0:r0 + _SUM_ROWS]
+                        out[i0 + r0:i0 + r0 + part.shape[0]] = \
+                            part.sum(dim=1) if onehot is None \
+                            else part @ onehot
+            return out
 
     def _squared_row_sums_csr(self, Q, class_ids, n_classes,
                               block: int) -> np.ndarray:
@@ -662,27 +680,43 @@ class ProximityEngine:
         CSR for large train-side jobs on a CPU engine.  Returns (indices
         int64, values float64: a float32 engine's values widened, as the
         reference's scipy engine returns them)."""
-        qs = self.query_state(X)
-        if self._sparse_train(X):
-            idx, val = topk_neighbors(qs.Q, self.W, k,
-                                      block=self._budget_block(block))
-            return (self._tensor(idx, torch.int64),
-                    self._tensor(val, torch.float64))
-        kk = min(k, self.n_ref)
-        idx = torch.zeros((qs.n, k), dtype=torch.int64, device=self.device)
-        val = torch.zeros((qs.n, k), dtype=torch.float64, device=self.device)
-        spill = torch.zeros(qs.n, dtype=torch.bool, device=self.device)
-        for i0, i1, B in self._dense_blocks(qs, block):
-            idx[i0:i1, :kk], val[i0:i1, :kk], spill[i0:i1] = \
-                _topk_rows(B, kk)
-        if bool(spill.any()):          # one host read for the whole call
-            rows = spill.nonzero()[:, 0]
-            step = self._op_row_chunk(block)
-            for r0 in range(0, rows.numel(), step):
-                r = rows[r0:r0 + step]
-                ix, v = _topk_rows_exact(self._block(qs.gl[r], qs.q[r]), kk)
-                idx[r, :kk], val[r, :kk] = ix, v.to(val.dtype)
-        return idx, val
+        with region("engine.topk"):
+            qs = self.query_state(X)
+            if self._sparse_train(X):
+                idx, val = topk_neighbors(qs.Q, self.W, k,
+                                          block=self._budget_block(block))
+                return (self._tensor(idx, torch.int64),
+                        self._tensor(val, torch.float64))
+            kk = min(k, self.n_ref)
+            dev = self.device
+            idx = torch.zeros((qs.n, k), dtype=torch.int64, device=dev)
+            val = torch.zeros((qs.n, k), dtype=torch.float64, device=dev)
+            spill = torch.zeros(qs.n, dtype=torch.bool, device=dev)
+            for i0, i1, B in self._dense_blocks(qs, block):
+                with region("engine.select"):
+                    idx[i0:i1, :kk], val[i0:i1, :kk], spill[i0:i1] = \
+                        _topk_rows(B, kk)
+            with region("engine.spill_read"):  # one host read for the call
+                rows = spill.nonzero()[:, 0] if bool(spill.any()) else None
+            n_spill = 0 if rows is None else rows.numel()
+            if n_spill:
+                with region("engine.spill_redo"):
+                    step = self._op_row_chunk(block)
+                    for r0 in range(0, n_spill, step):
+                        r = rows[r0:r0 + step]
+                        B = self._block(qs.gl[r], qs.q[r])
+                        with region("engine.select"):
+                            ix, v = _topk_rows_exact(B, kk)
+                            idx[r, :kk], val[r, :kk] = ix, v.to(val.dtype)
+            reg = global_registry()
+            reg.counter("engine_topk_rows_total",
+                        "query rows top-k selected from dense blocks"
+                        ).inc(qs.n)
+            reg.counter("engine_topk_spill_rows_total",
+                        "of those, rows whose ties at the k-th value "
+                        "spilled past the candidates (redone exactly)"
+                        ).inc(n_spill)
+            return idx, val
 
     # ---------------- accounting ----------------
     def memory_bytes(self) -> dict:
@@ -718,6 +752,17 @@ class ProximityEngine:
                 "engine_memory_budget_bytes",
                 "configured engine memory budget").set(float(out["budget"]))
         return out
+
+
+def _class_array(class_ids, n_classes: Optional[int]):
+    """(``class_ids`` as an int64 host array, the class count: one past the
+    largest id unless given); (None, n_classes) without ids."""
+    if class_ids is None:
+        return None, n_classes
+    class_ids = np.asarray(class_ids, dtype=np.int64)
+    if n_classes is None:
+        n_classes = int(class_ids.max()) + 1
+    return class_ids, n_classes
 
 
 # Candidates a row's top-k takes beyond k, so that the columns tied at the

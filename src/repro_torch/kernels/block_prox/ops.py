@@ -213,7 +213,8 @@ def block_prox(gl_q: torch.Tensor, q: torch.Tensor, gl_w: torch.Tensor,
     ``block_prox.launches`` for float64, ``block_prox.launches_f32`` for
     float32): in the leaf-collision form on ``index``, a
     :class:`LeafIndex` of ``(gl_w, w)``, or in the dense form without one.
-    A failed launch raises.
+    ``block_prox.form_launches`` counts them by form and type (``leaf``,
+    ``dense``, ``leaf_f32``, ``dense_f32``).  A failed launch raises.
     """
     dev = gl_q.device
     vt = _value_type(q, "q")
@@ -259,12 +260,17 @@ def block_prox(gl_q: torch.Tensor, q: torch.Tensor, gl_w: torch.Tensor,
                 index.col.data_ptr(), index.w.data_ptr(), out.data_ptr(), nw,
                 tile, smem, stream)
     _build.check(lib, err, "block_prox launch")
+    form = "dense" if index is None else "leaf"
     if vt == torch.float64:
         block_prox.launches += 1
+        block_prox.form_launches[form] += 1
     else:
         block_prox.launches_f32 += 1
+        block_prox.form_launches[form + "_f32"] += 1
     return out
 
 
 block_prox.launches = 0
 block_prox.launches_f32 = 0
+block_prox.form_launches = {"leaf": 0, "dense": 0, "leaf_f32": 0,
+                            "dense_f32": 0}

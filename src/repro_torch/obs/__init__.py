@@ -11,7 +11,9 @@ Three dependency-free pillars shared by serving, the engine, and training
 
 ``obs.trace``
     Per-request span trees on an injectable clock, sampled into a bounded
-    ring buffer, exportable as Chrome ``chrome://tracing`` JSON.
+    ring buffer, exportable as Chrome ``chrome://tracing`` JSON; and the
+    engine's regions (``region``, switched by ``set_regions``, off by
+    default): ``torch.profiler`` ranges named ``repro:<name>``.
 
 ``obs.profile``
     ``instrument(engine)`` — a transparent proxy timing every
@@ -27,9 +29,10 @@ from .http import EXPOSITION_CONTENT_TYPE, MetricsHTTPServer
 from .metrics import (EWMA, Counter, Gauge, Histogram, MetricsRegistry,
                       global_registry, parse_exposition)
 from .profile import InstrumentedEngine, instrument
-from .trace import NULL_SPAN, Span, Tracer
+from .trace import NULL_REGION, NULL_SPAN, Span, Tracer, region, set_regions
 
 __all__ = ["MetricsRegistry", "Counter", "Gauge", "Histogram", "EWMA",
            "global_registry", "parse_exposition", "Tracer", "Span",
-           "NULL_SPAN", "instrument", "InstrumentedEngine",
-           "MetricsHTTPServer", "EXPOSITION_CONTENT_TYPE"]
+           "NULL_SPAN", "NULL_REGION", "region", "set_regions", "instrument",
+           "InstrumentedEngine", "MetricsHTTPServer",
+           "EXPOSITION_CONTENT_TYPE"]

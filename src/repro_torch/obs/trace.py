@@ -20,6 +20,13 @@ of traffic.
 request (so each request reads as its own row), ``"ph": "X"`` complete
 events for spans and ``"ph": "i"`` instants for events, timestamps in
 microseconds.
+
+Program regions (:func:`region`) are the engine's own spans, for a
+``torch.profiler`` trace rather than this module's ring: with regions on
+(:func:`set_regions`, off by default, process-wide) each is a
+``record_function`` range named ``repro:<name>``, on the same timeline and
+clock as the device ops it launches; off, :func:`region` returns the shared
+:data:`NULL_REGION` and makes no profiler call and no clock read.
 """
 from __future__ import annotations
 
@@ -30,7 +37,8 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional
 
-__all__ = ["Span", "Tracer", "NULL_SPAN"]
+__all__ = ["Span", "Tracer", "NULL_SPAN", "NULL_REGION", "region",
+           "set_regions"]
 
 
 class _NullSpan:
@@ -54,6 +62,39 @@ class _NullSpan:
 
 
 NULL_SPAN = _NullSpan()
+
+
+class _NullRegion:
+    """Shared no-op context for :func:`region` while regions are off."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+NULL_REGION = _NullRegion()
+_REGIONS = False
+
+
+def set_regions(on: bool) -> bool:
+    """Turn the program's regions on or off for the whole process; returns
+    the previous state."""
+    global _REGIONS
+    old, _REGIONS = _REGIONS, bool(on)
+    return old
+
+
+def region(name: str):
+    """A ``torch.profiler.record_function`` range named ``repro:<name>``
+    while regions are on, else :data:`NULL_REGION`."""
+    if not _REGIONS:
+        return NULL_REGION
+    from torch.profiler import record_function
+    return record_function("repro:" + name)
 
 
 class Span:
