@@ -42,8 +42,8 @@
    with their device time, the device ops of one call, and the kernel mode
    the wrapper did not pick (same bits) timed beside the one it picked;
 7. drives the proximity applications on the acceptance forest, counted
-   (K1/K2/K3/K4 launches a step; cold, and warm where a server repeats
-   the call): outlier scores (train side and OOS), prototypes (10 a
+   (K1/K2/K3/K4/top-k launches a step; cold, and warm where a server
+   repeats the call): outlier scores (train side and OOS), prototypes (10 a
    class, k=50), the compressed engine's OOS predict and top-k, the
    nearest-prototype classifier, the depth-4 prefix tier (its OOS predict
    launches no K1) and the truncated forest's routing, label propagation
@@ -145,6 +145,11 @@
    one-rank world: its argument bytes must equal the state and batch
    phase 13 (a) trained on, and its predicted peak is printed beside phase
    11 (b)'s measured one.  Every cell must be ``ok``.
+
+Then it holds the row top-k kernel bit for bit against its plain version
+at the engine's 320 x 100,000 block (float64 and float32) and at a 64-row
+tick, on dense and sparse rows, and times it beside the plain version,
+``torch.topk`` and one read of the block (``row_topk_times``).
 
 Last it prints one ``{"kernels": [...]}`` line (launches on the main, GBT,
 applications, serving, out-of-core, LM proximity-head, LM training,
@@ -515,7 +520,7 @@ def phase9(torch, dev, n_rows, wrappers):
                       else fk9.engine.memory_bytes(),
                       "files": sorted(os.listdir(scratch))}
                 stages[name] = st
-                print(f"  stage {name}: {sec:.3f} s, K1/K2/K3/K4 "
+                print(f"  stage {name}: {sec:.3f} s, K1/K2/K3/K4/top-k "
                       f"{st['launches']}, device transient "
                       f"{st['device_transient'] / 2 ** 20:.1f} MiB, host "
                       f"traced peak {st['host_peak'] / 2 ** 20:.1f} MiB, "
@@ -1128,7 +1133,8 @@ def phase10(torch, dev, wrappers):
           f"card LM, {twin.N_TREES} trees equal to the host fit's, top-k "
           f"{e_topk:.2e} and predict scores {e_pred:.2e} from the CPU "
           f"engine, label recovery {acc:.3f}, leaf-PCA {Z.shape}; launches "
-          f"K1/K2/K3/K4 {'/'.join(str(v) for v in lm_launches.values())} "
+          f"K1/K2/K3/K4/top-k "
+          f"{'/'.join(str(v) for v in lm_launches.values())} "
           f"({time.perf_counter() - t:.1f} s)", flush=True)
 
     # each kernel of (e) against its plain version on the twin's card
@@ -1756,6 +1762,7 @@ def phase12(torch, dev, fk, Xtr, ytr, Xte, snap_bytes64):
     from repro_torch.kernels.block_prox.ref import block_prox_ref
     from repro_torch.kernels.histogram.ops import histogram, moments
     from repro_torch.kernels.leaf_route.ops import route
+    from repro_torch.kernels.row_topk.ops import row_topk
     from repro_torch.obs.metrics import global_registry
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from _f32_contract import RTOL_F32, decided_rows
@@ -1779,7 +1786,8 @@ def phase12(torch, dev, fk, Xtr, ytr, Xte, snap_bytes64):
 
     # ---- (a) the float32 path, counted ----
     counters = {"leaf_route": route, "block_prox": block_prox,
-                "histogram": histogram, "moments": moments}
+                "histogram": histogram, "moments": moments,
+                "row_topk": row_topk}
     for f in counters.values():
         f.launches = 0
     block_prox.launches_f32 = 0
@@ -1863,11 +1871,13 @@ def phase12(torch, dev, fk, Xtr, ytr, Xte, snap_bytes64):
     serve_s = time.perf_counter() - t
     launches = {k: f.launches for k, f in counters.items()}
     launches_f32 = block_prox.launches_f32
-    print(f"phase 12 (a) float32 path launches K1/K2 f64/K3/K4: "
+    print(f"phase 12 (a) float32 path launches K1/K2 f64/K3/K4/top-k: "
           f"{'/'.join(str(v) for v in launches.values())}, K2 float32 "
           f"{launches_f32}", flush=True)
     check(launches_f32 > 0, "K2's float32 form was not launched")
     check(launches["block_prox"] == 0, "the float32 path launched K2 f64")
+    check(launches["row_topk"] > 0, "the float32 path's top-k did not "
+          "launch row_topk")
 
     # checks: against phase 1's float64 results, then the CPU engine
     from repro_torch.applications.outliers import oos_outlier_scores
@@ -2087,6 +2097,51 @@ def phase12(torch, dev, fk, Xtr, ytr, Xte, snap_bytes64):
             "plain_ms": plain_ms, "bound_ms": terms[bound_by] * 1e3,
             "bound_by": bound_by, "library_ms": lib_ms}
 
+def row_topk_times(torch, dev):
+    """The row top-k kernel at the engine's block (320 x 100,000) in
+    float64 and float32 and at a 64-row serving tick, on dense random rows
+    (every entry distinct: a booster's blocks) and on sparse rows (1% of the
+    columns nonzero, the rest tied at 0: a deep forest's), k = 10: bit for
+    bit against its plain version, timed beside the plain version,
+    ``torch.topk`` (the library call it replaced) and one read of the block
+    at the HBM rate."""
+    from repro_torch.kernels.row_topk.ops import row_topk
+    from repro_torch.kernels.row_topk.ref import row_topk_ref
+    k, n = 10, 100_000
+    g = torch.Generator(device=dev)
+    g.manual_seed(26)
+    res = {}
+    for rows, dt in ((320, torch.float64), (320, torch.float32),
+                     (64, torch.float64)):
+        dense = torch.rand((rows, n), generator=g, device=dev,
+                           dtype=torch.float64).to(dt)
+        sparse = torch.where(torch.rand((rows, n), generator=g, device=dev)
+                             < 0.01, dense, torch.zeros((), dtype=dt,
+                                                        device=dev))
+        for kind, B in (("dense", dense), ("sparse", sparse)):
+            idx, val = row_topk(B, k)
+            want = row_topk_ref(B, k)
+            check(torch.equal(idx, want[0]) and torch.equal(val, want[1]),
+                  f"row_topk {rows}x{n} {dt} {kind}: not the plain version")
+            lib = torch.topk(B, k, dim=1).values.double()
+            check(torch.equal(lib, val), f"row_topk {rows}x{n} {dt} "
+                  f"{kind}: not torch.topk's values")
+            res[(rows, str(dt)[6:], kind)] = {
+                "ms": cuda_ms(torch, lambda: row_topk(B, k), 20),
+                "plain_ms": cuda_ms(torch, lambda: row_topk_ref(B, k), 2),
+                "library_ms": cuda_ms(torch, lambda: torch.topk(B, k, dim=1),
+                                      20),
+                "bound_ms": (B.numel() * B.element_size() + rows * k * 16)
+                / HBM_BYTES_S * 1e3}
+        del dense, sparse, B
+    print("row_topk k=10 (ms: kernel / plain / torch.topk / one-read "
+          "bound): " + "; ".join(
+              f"{r}x{n} {dt} {kind} {v['ms']:.4f} / {v['plain_ms']:.3f} / "
+              f"{v['library_ms']:.4f} / {v['bound_ms']:.4f}"
+              for (r, dt, kind), v in res.items()), flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2114,8 +2169,11 @@ def main() -> int:
                                                    moments_ref)
     from repro_torch.kernels.leaf_route.ops import route, route_tables
     from repro_torch.kernels.leaf_route.ref import route_ref
+    from repro_torch.kernels.row_topk.ops import row_topk
+    from repro_torch.obs.metrics import global_registry
     wrappers = {"leaf_route": route, "block_prox": block_prox,
-                "histogram": histogram, "moments": moments}
+                "histogram": histogram, "moments": moments,
+                "row_topk": row_topk}
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2188,21 +2246,34 @@ def main() -> int:
     counted("build_kernel_cache", fk.build_kernel_cache)
     pred_tr = counted("predict_train", fk.predict)
     pred_te = counted("predict_oos", lambda: fk.predict(Xte))
+    kernel_rows = global_registry().counter(
+        "engine_topk_kernel_rows_total",
+        "of those, rows the row_topk kernel selected").labels()
+    kr0 = kernel_rows.value
     top_idx, top_val = counted("topk_oos", lambda: fk.topk(k=K, X=Xq))
+    kr_oos = kernel_rows.value - kr0
     blk = counted("kernel_block", lambda: fk.kernel_block(rows))
     srs = counted("squared_row_sums_oos", lambda: fk.engine.squared_row_sums(
         ytr, n_classes=N_CLASSES, X=Xte))
     rsum = counted("row_sums", fk.row_sums)
     # all-pairs jobs over the training set: 50k x 50k through K2 row blocks
+    kr0 = kernel_rows.value
     tr_idx, tr_val = counted("topk_train", lambda: fk.topk(k=K))
+    kr_train = kernel_rows.value - kr0
     srs_tr = counted("squared_row_sums_train",
                      lambda: fk.engine.squared_row_sums(ytr, N_CLASSES))
     launches = read_counts()
-    print("main path (s, K1/K2/K3/K4 launches): " + ", ".join(
+    print("main path (s, K1/K2/K3/K4/top-k launches): " + ", ".join(
         f"{k} {v:.3f} ({per_step[k]})" for k, v in wall.items())
         + f"; launches {launches}", flush=True)
-    for name in ("leaf_route", "block_prox", "histogram"):
+    for name in ("leaf_route", "block_prox", "histogram", "row_topk"):
         check(launches[name] > 0, f"{name} was not launched on the main path")
+    print(f"main path rows the row_topk kernel selected "
+          f"(engine_topk_kernel_rows_total): topk_oos {kr_oos:.0f}, "
+          f"topk_train {kr_train:.0f}", flush=True)
+    check(kr_oos == TOPK_ROWS and kr_train == N_TRAIN,
+          f"row_topk selected {kr_oos}/{kr_train} rows of the main path's "
+          f"top-k, not {TOPK_ROWS}/{N_TRAIN}")
     check(launches["moments"] == 0, "a classification fit launched K4")
     print(f"engine device memory: {fk.engine.memory_bytes()}", flush=True)
     levels = max(t.depth for t in fk.forest.trees_)
@@ -2355,10 +2426,10 @@ def main() -> int:
     g_blk = counted("gbt kernel_block", lambda: gk.kernel_block(rows))
     g_idx, g_val = counted("gbt topk_oos", lambda: gk.topk(k=K, X=Xg_te))
     gbt_launches = read_counts()
-    print("GBT path (s, K1/K2/K3/K4 launches): " + ", ".join(
+    print("GBT path (s, K1/K2/K3/K4/top-k launches): " + ", ".join(
         f"{k} {wall[k]:.3f} ({per_step[k]})" for k in per_step
         if k.startswith("gbt")) + f"; launches {gbt_launches}", flush=True)
-    for name in ("leaf_route", "block_prox", "moments"):
+    for name in ("leaf_route", "block_prox", "moments", "row_topk"):
         check(gbt_launches[name] > 0, f"{name} was not launched on the GBT "
               "path")
     check(gbt_launches["histogram"] == 0, "a regression fit launched K3")
@@ -2871,12 +2942,12 @@ def main() -> int:
     app_launches = read_counts()
     app_steps = [k for k in per_step if k not in earlier]
     print("applications path (s cold, s warm where a server repeats the "
-          "call, K1/K2/K3/K4 launches): " + ", ".join(
+          "call, K1/K2/K3/K4/top-k launches): " + ", ".join(
               f"{k} {wall[k]:.4f}"
               + (f" warm {app_warm[k]:.4f}" if k in app_warm else "")
               + f" ({per_step[k]})" for k in app_steps)
           + f"; launches {app_launches}", flush=True)
-    for name in ("leaf_route", "block_prox", "histogram"):
+    for name in ("leaf_route", "block_prox", "histogram", "row_topk"):
         check(app_launches[name] > 0,
               f"{name} was not launched on the applications path")
     for name in ("oos_outlier_scores", "propagate partial_fit_oos",
@@ -2886,6 +2957,8 @@ def main() -> int:
     for name in ("impute", "impute again"):
         check(int(per_step[name].split("/")[2]) > 0,
               f"{name} did not fit on the card through K3")
+    check(int(per_step["prototypes"].split("/")[4]) > 0,
+          "prototypes (k=50) did not select through row_topk")
 
     # ---- phase 7 checks: each application against the port's CPU engine
     # on the same leaves ----
@@ -3296,10 +3369,10 @@ def main() -> int:
           f"{c_failed}, shed {c_shed} of {N_SERVE_REQ} (0 lost)", flush=True)
     serve_launches = read_counts()
     serve_steps = [k for k in per_step if k not in earlier]
-    print("serving path (s, K1/K2/K3/K4 launches): " + ", ".join(
+    print("serving path (s, K1/K2/K3/K4/top-k launches): " + ", ".join(
         f"{k} {wall[k]:.3f} ({per_step[k]})" for k in serve_steps)
         + f"; launches {serve_launches}", flush=True)
-    for name in ("leaf_route", "block_prox"):
+    for name in ("leaf_route", "block_prox", "row_topk"):
         check(serve_launches[name] > 0,
               f"{name} was not launched on the serving path")
 
@@ -3379,7 +3452,7 @@ def main() -> int:
     peak11 = phase11(torch, dev)
     torch.cuda.synchronize()
     train_launches = read_counts()
-    print(f"phase 11 launches K1/K2/K3/K4: "
+    print(f"phase 11 launches K1/K2/K3/K4/top-k: "
           f"{'/'.join(str(v) for v in train_launches.values())}", flush=True)
 
     # ---- phase 12: float32 factors and the sharded product ----
@@ -3390,11 +3463,15 @@ def main() -> int:
     arg_bytes13 = phase13(torch, dev)
     torch.cuda.synchronize()
     mesh_launches = read_counts()
-    print(f"phase 13 launches K1/K2/K3/K4: "
+    print(f"phase 13 launches K1/K2/K3/K4/top-k: "
           f"{'/'.join(str(v) for v in mesh_launches.values())}", flush=True)
 
     # ---- phase 14: the dry runs' results (no card, no kernel) ----
     phase14_finish(dry_out, dry_proc, arg_bytes13, peak11)
+
+    # ---- the row top-k kernel at the engine's block and a tick ----
+    rt = row_topk_times(torch, dev)
+    rt_main = rt[(320, "float64", "dense")]
 
     # ---- bounds, from this run's shapes and data ----
     # K1 reads X once, each real node's 16-byte record once (not the
@@ -3473,6 +3550,14 @@ def main() -> int:
          "ms": k4_ms, "plain_ms": k4_plain_ms,
          "bound_ms": k4_terms[k4_by] * 1e3, "bound_by": k4_by,
          "library_ms": k4_lib_ms},
+        {"name": "row_topk", "route": "cuda",
+         "source": "src/repro_torch/kernels/row_topk/csrc/row_topk.cu",
+         "replaces": None,             # the reference's jax.lax.top_k
+         "launches": total("row_topk"),
+         "max_abs_err": 0.0,           # every case is bit for bit
+         "ms": rt_main["ms"], "plain_ms": rt_main["plain_ms"],
+         "bound_ms": rt_main["bound_ms"], "bound_by": "bytes",
+         "library_ms": rt_main["library_ms"]},
     ]
     print(f"K1 route (M={M}), ms a wrapper call / on the device: " +
           ", ".join(f"{k} {k1_times[k][0]:.4f} / {k1_times[k][1]:.4f} "

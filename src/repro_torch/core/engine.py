@@ -19,7 +19,10 @@ every tick pays only the query-side gather) and the query-side gather.
 Dense blocks, top-k and squared row sums run through the ``block_prox``
 kernel, which a CUDA engine whose leaves are small feeds its reference
 side grouped by leaf (``leaf_index``, built on the device at the first
-such call); with big leaves it runs the kernel's dense form.
+such call); with big leaves it runs the kernel's dense form.  A CUDA
+engine selects each block's top-k (k up to ``row_topk``'s ``MAX_K``) with
+the ``row_topk`` kernel in one read of the block; a wider k, and a CPU
+engine, take ``torch.topk`` and the tie rule (``_topk_rows``).
 On a CPU engine the same calls take the kernels' plain versions, and large
 train-side top-k and squared row sums take the host CSR factors instead.
 Results are tensors on the engine's device, in the engine's dtype (top-k
@@ -30,11 +33,13 @@ With regions on (``obs.trace.set_regions``), ``topk`` and
 ``engine.topk`` / ``engine.squared_row_sums`` around each call,
 ``engine.k2`` around each block kernel call, ``engine.select`` around each
 top-k selection, ``engine.spill_read`` around the tie rule's host read and
-``engine.spill_redo`` around its exact redo, ``engine.class_ids`` around
-the class one-hot's build and ``engine.class_sums`` around each block's
-squares and class sums.  Each ``topk`` call on dense blocks adds its rows
-and the rows the tie rule redid to the process-wide counters
-``engine_topk_rows_total`` and ``engine_topk_spill_rows_total``.
+``engine.spill_redo`` around its exact redo (neither on the kernel's path),
+``engine.class_ids`` around the class one-hot's build and
+``engine.class_sums`` around each block's squares and class sums.  Each
+``topk`` call on dense blocks adds its rows, the rows the tie rule redid
+and the rows the kernel selected to the process-wide counters
+``engine_topk_rows_total``, ``engine_topk_spill_rows_total`` and
+``engine_topk_kernel_rows_total``.
 
 With several cards, products on the training rows take the sharded path
 (``torch_ops.sharded_swlc_matmat`` over ``torch_ops.default_mesh()``: rows
@@ -71,6 +76,8 @@ from scipy.sparse.linalg import LinearOperator
 from ..kernels.block_prox.ops import (LEAF_DENSITY_MAX, LeafIndex,
                                       block_prox, build_leaf_index,
                                       leaf_density)
+from ..kernels.row_topk.ops import MAX_K as ROW_TOPK_MAX_K
+from ..kernels.row_topk.ops import row_topk
 from ..obs.metrics import global_registry
 from ..obs.trace import region
 from . import torch_ops
@@ -676,10 +683,12 @@ class ProximityEngine:
              block: int = 4096) -> Tuple[torch.Tensor, torch.Tensor]:
         """Per-query top-k proximities, values descending and equal values
         by ascending column (so the card and the host pick the same
-        columns): dense device blocks reduced by ``torch.topk``, or host
-        CSR for large train-side jobs on a CPU engine.  Returns (indices
-        int64, values float64: a float32 engine's values widened, as the
-        reference's scipy engine returns them)."""
+        columns): dense device blocks reduced by the ``row_topk`` kernel
+        on a CUDA engine with ``k`` up to its ``MAX_K`` and by ``torch.topk``
+        and the tie rule otherwise, or host CSR for large train-side jobs
+        on a CPU engine.  Returns (indices int64, values float64: a float32
+        engine's values widened, as the reference's scipy engine returns
+        them)."""
         with region("engine.topk"):
             qs = self.query_state(X)
             if self._sparse_train(X):
@@ -689,25 +698,21 @@ class ProximityEngine:
                         self._tensor(val, torch.float64))
             kk = min(k, self.n_ref)
             dev = self.device
+            kernel = dev.type == "cuda" and 0 < kk <= ROW_TOPK_MAX_K
             idx = torch.zeros((qs.n, k), dtype=torch.int64, device=dev)
             val = torch.zeros((qs.n, k), dtype=torch.float64, device=dev)
-            spill = torch.zeros(qs.n, dtype=torch.bool, device=dev)
+            spill = None if kernel else torch.zeros(qs.n, dtype=torch.bool,
+                                                    device=dev)
             for i0, i1, B in self._dense_blocks(qs, block):
                 with region("engine.select"):
-                    idx[i0:i1, :kk], val[i0:i1, :kk], spill[i0:i1] = \
-                        _topk_rows(B, kk)
-            with region("engine.spill_read"):  # one host read for the call
-                rows = spill.nonzero()[:, 0] if bool(spill.any()) else None
-            n_spill = 0 if rows is None else rows.numel()
-            if n_spill:
-                with region("engine.spill_redo"):
-                    step = self._op_row_chunk(block)
-                    for r0 in range(0, n_spill, step):
-                        r = rows[r0:r0 + step]
-                        B = self._block(qs.gl[r], qs.q[r])
-                        with region("engine.select"):
-                            ix, v = _topk_rows_exact(B, kk)
-                            idx[r, :kk], val[r, :kk] = ix, v.to(val.dtype)
+                    if kernel:
+                        row_topk(B, kk, idx=idx[i0:i1, :kk],
+                                 val=val[i0:i1, :kk])
+                    else:
+                        idx[i0:i1, :kk], val[i0:i1, :kk], spill[i0:i1] = \
+                            _topk_rows(B, kk)
+            n_spill = 0 if kernel else \
+                self._redo_spills(qs, spill, idx, val, kk, block)
             reg = global_registry()
             reg.counter("engine_topk_rows_total",
                         "query rows top-k selected from dense blocks"
@@ -716,7 +721,30 @@ class ProximityEngine:
                         "of those, rows whose ties at the k-th value "
                         "spilled past the candidates (redone exactly)"
                         ).inc(n_spill)
+            reg.counter("engine_topk_kernel_rows_total",
+                        "of those, rows the row_topk kernel selected"
+                        ).inc(qs.n if kernel else 0)
             return idx, val
+
+    def _redo_spills(self, qs: QueryState, spill: torch.Tensor,
+                     idx: torch.Tensor, val: torch.Tensor, kk: int,
+                     block: int) -> int:
+        """Redo exactly the rows whose ties at the k-th value spilled past
+        ``_topk_rows``' candidates, after one host read of ``spill``;
+        returns their count."""
+        with region("engine.spill_read"):  # one host read for the call
+            rows = spill.nonzero()[:, 0] if bool(spill.any()) else None
+        n_spill = 0 if rows is None else rows.numel()
+        if n_spill:
+            with region("engine.spill_redo"):
+                step = self._op_row_chunk(block)
+                for r0 in range(0, n_spill, step):
+                    r = rows[r0:r0 + step]
+                    B = self._block(qs.gl[r], qs.q[r])
+                    with region("engine.select"):
+                        ix, v = _topk_rows_exact(B, kk)
+                        idx[r, :kk], val[r, :kk] = ix, v.to(val.dtype)
+        return n_spill
 
     # ---------------- accounting ----------------
     def memory_bytes(self) -> dict:

@@ -6,7 +6,9 @@ With regions off, ``region`` hands out the shared no-op and a
 engine's docstring names them, and the answers keep their bits.  The
 top-k counters count exactly the rows ``_topk_rows`` flags.  The tests
 marked ``cuda`` (skipped without a card) hold K2's launch counts by form
-to the form the engine picks.
+to the form the engine picks, and the card engine's top-k through the
+``row_topk`` kernel to its ``torch.topk`` path: the same answers, the
+kernel's counts, and no tie-rule host read.
 """
 import numpy as np
 import pytest
@@ -14,9 +16,10 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.core.api import ForestKernel
-from repro_torch.core.engine import _topk_rows
+from repro_torch.core.engine import _topk_rows, _topk_rows_exact
 from repro_torch.data.synthetic import friedman1, gaussian_classes
 from repro_torch.kernels.block_prox.ops import block_prox
+from repro_torch.kernels.row_topk.ops import row_topk
 from repro_torch.obs import (NULL_REGION, MetricsRegistry, global_registry,
                              region, set_regions)
 from repro_torch.obs.metrics import set_global_registry
@@ -204,17 +207,18 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _card_engine(kind):
+def _card_engine(kind, dtype=np.float64):
     rng = np.random.default_rng(7)
     if kind == "leaf":                 # random labels: one-sample leaves
         X = rng.normal(size=(3000, 8))
         fk = ForestKernel(kernel_method="gap", n_trees=8, seed=1,
-                          device="cuda").fit(X, rng.integers(0, 5, 3000))
+                          device="cuda", dtype=dtype
+                          ).fit(X, rng.integers(0, 5, 3000))
         return fk.engine, rng.integers(0, 5, 3000)
     X, y = friedman1(3000, d=8, seed=2)  # depth 6: leaves of hundreds
     fk = ForestKernel(model_type="gbt", task="regression",
                       kernel_method="boosted", n_trees=20, max_depth=6,
-                      seed=0, device="cuda").fit(X, y)
+                      seed=0, device="cuda", dtype=dtype).fit(X, y)
     return fk.engine, rng.integers(0, 5, 3000)
 
 
@@ -250,3 +254,62 @@ def test_card_answers_bit_identical_with_regions_on(dev, regions_off):
     names = {e.name() for e in prof.profiler.kineto_results.events()}
     assert {"repro:engine.k2", "repro:engine.select",
             "repro:engine.class_sums"} <= names
+
+
+def _torch_topk_path(eng, k):
+    """The engine's answer through ``_topk_rows`` and, for the rows it
+    flags, ``_topk_rows_exact``, on its whole dense block."""
+    B = eng.kernel_block()
+    kk = min(k, eng.n_ref)
+    idx, val, spill = _topk_rows(B, kk)
+    idx, val = idx.clone(), val.to(torch.float64)
+    rows = spill.nonzero()[:, 0]
+    if rows.numel():
+        ix, v = _topk_rows_exact(B[rows], kk)
+        idx[rows], val[rows] = ix, v.to(torch.float64)
+    return idx, val
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("kind", ["leaf", "dense"])
+def test_card_topk_kernel_equals_torch_topk_path(dev, regions_off,
+                                                 fresh_global, kind, dtype):
+    """k = 10 and 50, in one block and in 64-row blocks: the kernel's
+    answer is the torch.topk path's, one launch a block, every row counted
+    as the kernel's and none as spilled."""
+    eng, _ = _card_engine(kind, dtype)
+    n = eng.n_ref
+    for k in (10, 50):
+        want = _torch_topk_path(eng, k)
+        for block in (4096, 64):
+            launches = row_topk.launches
+            got = eng.topk(k=k, block=block)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]), (k, block)
+            assert torch.equal(got[1], want[1]), (k, block)
+            step = eng._op_row_chunk(block)
+            assert row_topk.launches - launches == -(-n // step)
+    snap = fresh_global.snapshot()
+    assert snap["engine_topk_rows_total"]["series"][""] == 4 * n
+    assert snap["engine_topk_kernel_rows_total"]["series"][""] == 4 * n
+    assert snap["engine_topk_spill_rows_total"]["series"][""] == 0
+
+
+@pytest.mark.cuda
+def test_card_topk_kernel_path_reads_nothing_back(dev, regions_off):
+    """On the kernel's path a top-k call has no tie-rule host read or
+    redo: no ``engine.spill_read`` or ``engine.spill_redo`` range, and
+    ``engine.select`` still around each block's selection."""
+    eng, _ = _card_engine("dense")
+    set_regions(True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.topk(k=K)
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.name().startswith("repro:")]
+    assert "repro:engine.select" in names
+    assert "repro:engine.spill_read" not in names
+    assert "repro:engine.spill_redo" not in names
