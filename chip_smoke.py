@@ -42,13 +42,13 @@
    with their device time, the device ops of one call, and the kernel mode
    the wrapper did not pick (same bits) timed beside the one it picked;
 7. drives the proximity applications on the acceptance forest, counted
-   (K1/K2/K3/K4/top-k launches a step; cold, and warm where a server
-   repeats the call): outlier scores (train side and OOS), prototypes (10 a
-   class, k=50), the compressed engine's OOS predict and top-k, the
-   nearest-prototype classifier, the depth-4 prefix tier (its OOS predict
-   launches no K1) and the truncated forest's routing, label propagation
-   (10% labelled, 50 iterations, online, the OOS projection), the
-   embedding (Lanczos over device products, Nyström transform), ``ih``
+   (K1/K2/K3/K4/top-k/pair-top-k/pair-sums launches a step; cold, and warm
+   where a server repeats the call): outlier scores (train side and OOS),
+   prototypes (10 a class, k=50), the compressed engine's OOS predict and
+   top-k, the nearest-prototype classifier, the depth-4 prefix tier (its
+   OOS predict launches no K1) and the truncated forest's routing, label
+   propagation (10% labelled, 50 iterations, online, the OOS projection),
+   the embedding (Lanczos over device products, Nyström transform), ``ih``
    weights on the same forest, and imputation (10% NaN in 4 columns, 2
    iterations of card refits, twice); then holds each against the port's
    CPU engine on the same leaves (training-set outliers on 1,024 rows and
@@ -73,9 +73,12 @@
    scratch directory and a 512 MiB ``memory_budget_bytes``, counted and
    timed stage by stage (streamed binning and staged-code training
    through K3, the chunked context and the streamed CSR build, train-side
-   outlier scores over K2 blocks, one imputation iteration, a tiered
-   serving burst), each stage's device transient, host traced peak,
-   engine bytes and scratch files printed.  Check (a) first refits phase
+   outlier scores over leaf collisions (``core/collide.py``, the path the
+   engine's rule picks at this size), one imputation iteration, a tiered
+   serving burst whose prototypes' top-k takes the collision path too),
+   each stage's device transient, host traced peak, engine bytes, scratch
+   files, collision counters and kernel launches (the collision-pair
+   kernels' among them) printed.  Check (a) first refits phase
    1's kernel under a 32 MiB budget (every budgeted branch taken) and
    holds it against phase 1's bit for bit (products within 1e-15); then
    (b) the streamed codes, the CSR factors' digest, 1,024 rows' outlier
@@ -83,6 +86,9 @@
    against a direct call, each stage's device transient at most 4 GiB and
    the scratch directory removed; (c) one K3 call on staged codes at the
    root level against its plain version and the device-resident call;
+   (d) the collision-pair kernels against their plain versions on the
+   card, on the products of three of the outlier scores' row blocks (top-k
+   bit for bit at k = 10 and 64, class sums within 1e-12), timed;
 10. drives the LM serving path (``repro_torch.models``, ``serve``,
    ``train/steps``), held to the bf16 contract of ``tests/_lm_contract.py``:
    (a) every arch at ``reduced()`` widths against the port's CPU path
@@ -153,10 +159,11 @@ tick, on dense and sparse rows, and times it beside the plain version,
 
 Last it prints one ``{"kernels": [...]}`` line (launches on the main, GBT,
 applications, serving, out-of-core, LM proximity-head, LM training,
-float32 and LM sharding paths; the dry runs launch none; K2's float32 instantiation has its own entry), errors,
-kernel / plain / library times and the least time the card could take),
-the card's name
-and power limit, and as its last line ``{"ok": true, "device": {...}}``.
+float32 and LM sharding paths; the dry runs launch none; K2's float32
+instantiation has its own entry, and the collision-pair kernels theirs),
+errors, kernel / plain / library times and the least time the card could
+take), the card's name and power limit, and as its last line ``{"ok":
+true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It exits non-zero at once when torch finds no CUDA device or when the
@@ -213,6 +220,11 @@ OOC_REQS, OOC_KINDS = 16, ("predict", "predict", "topk", "outlier")
 OOC_WINDOW = 65_536      # rows of each streamed-code window checked
 OOC_TRANSIENT_MAX = 4096 << 20  # the row's own ceiling for a 512 MiB budget
 OOC_RTOL = 1e-10         # outlier sums and scores against the host
+# the collision-pair sums against their plain version on the card: the same
+# squares added in another order (one pair dropped moves an entry ~1e-6)
+PAIR_SUMS_RTOL = 1e-12
+# the per-path launch counts, in the order of ``wrappers``
+LAUNCHES = "K1/K2/K3/K4/top-k/pair-top-k/pair-sums"
 ATOL_PRODUCT = 1e-15     # budgeted products (index_add_ atomics) vs phase 1
 # phase 12: float32 factors; the CPU checks' block rows (tolerance and
 # top-k tie rule: tests/_f32_contract.py)
@@ -461,12 +473,91 @@ def budget_check(torch, dev, fk, Xtr, ytr, Xq, Xte, rows):
           + f"; engine {mem}", flush=True)
 
 
+def pair_kernel_check(torch, eng, y, n_classes, k):
+    """The collision-pair kernels (``kernels/collide``) against their plain
+    versions on the card, on the products of three of the engine's own
+    train-side row blocks (the first, the one holding the most products and
+    the last): ``pair_topk`` bit for bit at ``k`` and at the kernel's
+    widest top-k, ``pair_sums`` class-bucketed and unbucketed within
+    ``PAIR_SUMS_RTOL`` of each entry; both timed beside their plain
+    versions on the largest block.  Leaves every launch count as it found
+    it."""
+    from repro_torch.core import collide
+    from repro_torch.kernels.collide.ops import MAX_K, pair_sums, pair_topk
+    from repro_torch.kernels.collide.ref import pair_sums_ref, pair_topk_ref
+    counts = (pair_topk.launches, pair_sums.launches)
+    index, gl, q, cum, blocks, depth = eng._collide_args()
+    dev, n_ref = gl.device, index.n_ref
+    class_of = torch.as_tensor(np.asarray(y), dtype=torch.int64, device=dev)
+    sizes = [int(cum[i1] - cum[i0]) for i0, i1 in blocks]
+    picked = sorted({0, int(np.argmax(sizes)), len(blocks) - 1})
+    out = {"blocks": len(blocks), "checked": [], "sums_abs_err": 0.0,
+           "sums_rel_err": 0.0}
+    for b in picked:
+        i0, i1 = blocks[b]
+        rows, n_prod = i1 - i0, sizes[b]
+        key, prod = collide._collide(index, gl[i0:i1], q[i0:i1], n_prod)
+        pairs = int((key[1:] != key[:-1]).sum()) + (n_prod > 0)
+        held = torch.bincount(torch.unique_consecutive(key) // n_ref,
+                              minlength=rows)
+        for kk in sorted({k, MAX_K}):
+            got = (torch.empty((rows, kk), dtype=torch.int64, device=dev),
+                   torch.empty((rows, kk), dtype=torch.float64, device=dev))
+            want = (torch.empty_like(got[0]), torch.empty_like(got[1]))
+            pair_topk(key, prod, n_ref, rows, depth, *got)
+            pair_topk_ref(key, prod, n_ref, rows, depth, *want)
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                               want[1]),
+                  f"pair_topk (k={kk}) on row block {b} ({rows} rows, "
+                  f"{n_prod} products) is not its plain version")
+        for cls, C in ((class_of, n_classes), (None, 1)):
+            got = torch.empty(rows * C, dtype=prod.dtype, device=dev)
+            want = torch.empty_like(got)
+            pair_sums(key, prod, n_ref, rows, depth, cls, C, got)
+            pair_sums_ref(key, prod, n_ref, rows, depth, cls, C, want)
+            diff = (got - want).abs()
+            rel = float((diff / want.abs().clamp_min(
+                torch.finfo(want.dtype).tiny)).max())
+            check(rel <= PAIR_SUMS_RTOL, f"pair_sums ({C} classes) on row "
+                  f"block {b} ({rows} rows): rel err {rel}")
+            out["sums_abs_err"] = max(out["sums_abs_err"],
+                                      float(diff.max()))
+            out["sums_rel_err"] = max(out["sums_rel_err"], rel)
+        out["checked"].append(
+            (b, rows, n_prod, pairs, int((held < k).sum())))
+        if b == int(np.argmax(sizes)):
+            kk = min(k, n_ref)
+            idx = torch.empty((rows, kk), dtype=torch.int64, device=dev)
+            val = torch.empty((rows, kk), dtype=torch.float64, device=dev)
+            sq = torch.empty(rows * n_classes, dtype=prod.dtype, device=dev)
+            read = n_prod * (key.element_size() + prod.element_size())
+            out.update({
+                "topk_ms": cuda_ms(torch, lambda: pair_topk(
+                    key, prod, n_ref, rows, depth, idx, val), 5),
+                "topk_plain_ms": cuda_ms(torch, lambda: pair_topk_ref(
+                    key, prod, n_ref, rows, depth, idx, val), 2),
+                "topk_bound_ms": (read + rows * kk * 16) / HBM_BYTES_S
+                * 1e3,
+                "sums_ms": cuda_ms(torch, lambda: pair_sums(
+                    key, prod, n_ref, rows, depth, class_of, n_classes,
+                    sq), 5),
+                "sums_plain_ms": cuda_ms(torch, lambda: pair_sums_ref(
+                    key, prod, n_ref, rows, depth, class_of, n_classes,
+                    sq), 2),
+                "sums_bound_ms": (read + n_ref * 8 + sq.numel()
+                                  * sq.element_size()) / HBM_BYTES_S * 1e3})
+        del key, prod
+    pair_topk.launches, pair_sums.launches = counts
+    return out
+
+
 def phase9(torch, dev, n_rows, wrappers):
     """The out-of-core row of the reference (``benchmarks/bench_scaling.py
     --out-of-core``) through the port's ``ForestKernel`` on the card:
     stages timed, counted and measured (device transient, host traced
     peak, engine bytes, scratch files), then checked.  Returns the stages'
-    launches."""
+    launches and the collision-pair kernels' check (``pair_kernel_check``,
+    empty where the engine's rule picks dense blocks)."""
     import tracemalloc
     from repro_torch.applications.outliers import oos_outlier_scores
     from repro_torch.core.api import ForestKernel
@@ -476,10 +567,18 @@ def phase9(torch, dev, n_rows, wrappers):
     from repro_torch.forest.training import Binner
     from repro_torch.kernels.histogram.ops import histogram
     from repro_torch.kernels.histogram.ref import histogram_ref
+    from repro_torch.obs.metrics import global_registry
     t9 = time.perf_counter()
 
     def counts():
         return {k: f.launches for k, f in wrappers.items()}
+
+    def collided():
+        """(rows served, products enumerated) on the collision path."""
+        snap = global_registry().snapshot()
+        return tuple(snap.get(c, {}).get("series", {}).get("", 0.0)
+                     for c in ("engine_collide_rows_total",
+                               "engine_collisions_total"))
 
     tracemalloc.start()
     stages = {}
@@ -502,7 +601,7 @@ def phase9(torch, dev, n_rows, wrappers):
 
             def stage(name, fn):
                 torch.cuda.synchronize()
-                before = counts()
+                before, c_before = counts(), collided()
                 torch.cuda.reset_peak_memory_stats()
                 base = torch.cuda.memory_allocated()
                 tracemalloc.reset_peak()
@@ -513,6 +612,8 @@ def phase9(torch, dev, n_rows, wrappers):
                 after = counts()
                 st = {"s": sec, "launches": "/".join(
                           str(after[k] - before[k]) for k in wrappers),
+                      "collide": tuple(a - b for a, b in
+                                       zip(collided(), c_before)),
                       "device_transient": torch.cuda.max_memory_allocated()
                       - base,
                       "host_peak": tracemalloc.get_traced_memory()[1],
@@ -520,8 +621,10 @@ def phase9(torch, dev, n_rows, wrappers):
                       else fk9.engine.memory_bytes(),
                       "files": sorted(os.listdir(scratch))}
                 stages[name] = st
-                print(f"  stage {name}: {sec:.3f} s, K1/K2/K3/K4/top-k "
-                      f"{st['launches']}, device transient "
+                print(f"  stage {name}: {sec:.3f} s, {LAUNCHES} "
+                      f"{st['launches']}, collision path rows/products "
+                      f"{st['collide'][0]:.0f}/{st['collide'][1]:.0f}, "
+                      f"device transient "
                       f"{st['device_transient'] / 2 ** 20:.1f} MiB, host "
                       f"traced peak {st['host_peak'] / 2 ** 20:.1f} MiB, "
                       f"engine {st['engine']}, scratch files {st['files']}",
@@ -549,8 +652,9 @@ def phase9(torch, dev, n_rows, wrappers):
             # 2. chunked K1, streamed (and, past the budget, spilled) CSR
             stage("build_kernel_cache", fk9.build_kernel_cache)
             eng9 = fk9.engine
-            # 3. train-side outlier scores: N x N in K2 blocks; the class-
-            # bucketed squared sums are kept for the checks
+            # 3. train-side outlier scores: N x N over leaf collisions
+            # where the engine's rule picks them, else in K2 blocks; the
+            # class-bucketed squared sums are kept for the checks
             sq_kept = []
             real_srs = eng9.squared_row_sums
 
@@ -562,6 +666,14 @@ def phase9(torch, dev, n_rows, wrappers):
                 scores = stage("outlier_scores", fk9.outlier_scores)
             finally:
                 del eng9.squared_row_sums
+            collides9 = eng9.collision_mode()
+            print(f"phase 9: train-side path "
+                  f"{'collision' if collides9 else 'dense blocks'} "
+                  f"(collision share {eng9.collision_share():.3g})",
+                  flush=True)
+            check(not collides9 or stages["outlier_scores"]["collide"][0]
+                  >= n_rows, "the outlier scores did not take the "
+                  "collision path")
 
             # 4. one imputation iteration on a NaN-injected copy
             def impute():
@@ -596,6 +708,8 @@ def phase9(torch, dev, n_rows, wrappers):
             srv, reqs, uids = stage("serve_tiered", serve)
             ooc_launches = counts()
             tracemalloc.stop()
+            pairs = pair_kernel_check(torch, eng9, y, OOC_CLASSES, K) \
+                if collides9 else {}
 
             # ---- checks (b) ----
             binner = fk9.forest.binner_
@@ -764,7 +878,26 @@ def phase9(torch, dev, n_rows, wrappers):
     for name in ("leaf_route", "block_prox", "histogram"):
         check(ooc_launches[name] > 0,
               f"{name} was not launched on the out-of-core path")
-    return ooc_launches
+    # the outlier scores' class sums and the prototypes' top-k
+    path9 = "the collision path" if collides9 else "dense blocks"
+    for name in ("pair_sums", "pair_topk"):
+        check((ooc_launches[name] > 0) == collides9,
+              f"{name} launched {ooc_launches[name]} times on the "
+              f"out-of-core path, on {path9}")
+    if pairs:
+        print("phase 9 check (d): the collision-pair kernels equal their "
+              "plain versions on the card on row blocks (block, rows, "
+              "products, pairs, rows holding fewer than k pairs) "
+              + ", ".join(str(c) for c in pairs["checked"])
+              + f" of {pairs['blocks']}: pair_topk bit for bit at k = {K} "
+              f"and 64, pair_sums rel err {pairs['sums_rel_err']:.1e} "
+              f"(abs {pairs['sums_abs_err']:.1e}); largest block ms "
+              f"kernel / plain / one read: top-k {pairs['topk_ms']:.4f} / "
+              f"{pairs['topk_plain_ms']:.3f} / "
+              f"{pairs['topk_bound_ms']:.4f}, sums {pairs['sums_ms']:.4f} "
+              f"/ {pairs['sums_plain_ms']:.3f} / "
+              f"{pairs['sums_bound_ms']:.4f}", flush=True)
+    return ooc_launches, pairs
 
 
 def lm_teacher_forced(torch, lm, params, cfg, tokens, cache, start, n):
@@ -1133,7 +1266,7 @@ def phase10(torch, dev, wrappers):
           f"card LM, {twin.N_TREES} trees equal to the host fit's, top-k "
           f"{e_topk:.2e} and predict scores {e_pred:.2e} from the CPU "
           f"engine, label recovery {acc:.3f}, leaf-PCA {Z.shape}; launches "
-          f"K1/K2/K3/K4/top-k "
+          f"{LAUNCHES} "
           f"{'/'.join(str(v) for v in lm_launches.values())} "
           f"({time.perf_counter() - t:.1f} s)", flush=True)
 
@@ -1760,6 +1893,7 @@ def phase12(torch, dev, fk, Xtr, ytr, Xte, snap_bytes64):
     from repro_torch.core.factorization import factor_digest
     from repro_torch.kernels.block_prox.ops import block_prox
     from repro_torch.kernels.block_prox.ref import block_prox_ref
+    from repro_torch.kernels.collide.ops import pair_sums, pair_topk
     from repro_torch.kernels.histogram.ops import histogram, moments
     from repro_torch.kernels.leaf_route.ops import route
     from repro_torch.kernels.row_topk.ops import row_topk
@@ -1787,7 +1921,8 @@ def phase12(torch, dev, fk, Xtr, ytr, Xte, snap_bytes64):
     # ---- (a) the float32 path, counted ----
     counters = {"leaf_route": route, "block_prox": block_prox,
                 "histogram": histogram, "moments": moments,
-                "row_topk": row_topk}
+                "row_topk": row_topk, "pair_topk": pair_topk,
+                "pair_sums": pair_sums}
     for f in counters.values():
         f.launches = 0
     block_prox.launches_f32 = 0
@@ -1871,7 +2006,7 @@ def phase12(torch, dev, fk, Xtr, ytr, Xte, snap_bytes64):
     serve_s = time.perf_counter() - t
     launches = {k: f.launches for k, f in counters.items()}
     launches_f32 = block_prox.launches_f32
-    print(f"phase 12 (a) float32 path launches K1/K2 f64/K3/K4/top-k: "
+    print(f"phase 12 (a) float32 path launches {LAUNCHES} (K2 float64): "
           f"{'/'.join(str(v) for v in launches.values())}, K2 float32 "
           f"{launches_f32}", flush=True)
     check(launches_f32 > 0, "K2's float32 form was not launched")
@@ -2169,11 +2304,13 @@ def main() -> int:
                                                    moments_ref)
     from repro_torch.kernels.leaf_route.ops import route, route_tables
     from repro_torch.kernels.leaf_route.ref import route_ref
+    from repro_torch.kernels.collide.ops import pair_sums, pair_topk
     from repro_torch.kernels.row_topk.ops import row_topk
     from repro_torch.obs.metrics import global_registry
     wrappers = {"leaf_route": route, "block_prox": block_prox,
                 "histogram": histogram, "moments": moments,
-                "row_topk": row_topk}
+                "row_topk": row_topk, "pair_topk": pair_topk,
+                "pair_sums": pair_sums}
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2249,6 +2386,9 @@ def main() -> int:
     kernel_rows = global_registry().counter(
         "engine_topk_kernel_rows_total",
         "of those, rows the row_topk kernel selected").labels()
+    collide_rows = global_registry().counter(
+        "engine_collide_rows_total",
+        "query rows served on the collision path").labels()
     kr0 = kernel_rows.value
     top_idx, top_val = counted("topk_oos", lambda: fk.topk(k=K, X=Xq))
     kr_oos = kernel_rows.value - kr0
@@ -2256,24 +2396,38 @@ def main() -> int:
     srs = counted("squared_row_sums_oos", lambda: fk.engine.squared_row_sums(
         ytr, n_classes=N_CLASSES, X=Xte))
     rsum = counted("row_sums", fk.row_sums)
-    # all-pairs jobs over the training set: 50k x 50k through K2 row blocks
-    kr0 = kernel_rows.value
+    # all-pairs jobs over the training set: 50k x 50k through K2 row
+    # blocks, or over leaf collisions where the engine's rule picks them
+    kr0, cr0 = kernel_rows.value, collide_rows.value
     tr_idx, tr_val = counted("topk_train", lambda: fk.topk(k=K))
-    kr_train = kernel_rows.value - kr0
+    kr_train, cr_train = kernel_rows.value - kr0, collide_rows.value - cr0
+    collides = fk.engine.collision_mode()
     srs_tr = counted("squared_row_sums_train",
                      lambda: fk.engine.squared_row_sums(ytr, N_CLASSES))
     launches = read_counts()
-    print("main path (s, K1/K2/K3/K4/top-k launches): " + ", ".join(
+    print(f"main path (s, {LAUNCHES} launches): " + ", ".join(
         f"{k} {v:.3f} ({per_step[k]})" for k, v in wall.items())
         + f"; launches {launches}", flush=True)
     for name in ("leaf_route", "block_prox", "histogram", "row_topk"):
         check(launches[name] > 0, f"{name} was not launched on the main path")
+    # the train-side top-k and class sums: on dense blocks, or through the
+    # collision-pair kernels where the engine's rule picks that path
+    for name in ("pair_topk", "pair_sums"):
+        check((launches[name] > 0) == collides,
+              f"{name} launched {launches[name]} times on the main path, "
+              f"its train-side path {'collision' if collides else 'dense'}")
     print(f"main path rows the row_topk kernel selected "
           f"(engine_topk_kernel_rows_total): topk_oos {kr_oos:.0f}, "
-          f"topk_train {kr_train:.0f}", flush=True)
-    check(kr_oos == TOPK_ROWS and kr_train == N_TRAIN,
-          f"row_topk selected {kr_oos}/{kr_train} rows of the main path's "
-          f"top-k, not {TOPK_ROWS}/{N_TRAIN}")
+          f"topk_train {kr_train:.0f}; rows served on the collision path "
+          f"(engine_collide_rows_total): topk_train {cr_train:.0f}; "
+          f"collision share {fk.engine.collision_share():.5f}, train-side "
+          f"path {'collision' if collides else 'dense blocks'}", flush=True)
+    want_kr, want_cr = (0, N_TRAIN) if collides else (N_TRAIN, 0)
+    check(kr_oos == TOPK_ROWS and kr_train == want_kr
+          and cr_train == want_cr,
+          f"row_topk selected {kr_oos}/{kr_train} rows and the collision "
+          f"path served {cr_train} of the main path's top-k, not "
+          f"{TOPK_ROWS}/{want_kr} and {want_cr}")
     check(launches["moments"] == 0, "a classification fit launched K4")
     print(f"engine device memory: {fk.engine.memory_bytes()}", flush=True)
     levels = max(t.depth for t in fk.forest.trees_)
@@ -2426,13 +2580,15 @@ def main() -> int:
     g_blk = counted("gbt kernel_block", lambda: gk.kernel_block(rows))
     g_idx, g_val = counted("gbt topk_oos", lambda: gk.topk(k=K, X=Xg_te))
     gbt_launches = read_counts()
-    print("GBT path (s, K1/K2/K3/K4/top-k launches): " + ", ".join(
+    print(f"GBT path (s, {LAUNCHES} launches): " + ", ".join(
         f"{k} {wall[k]:.3f} ({per_step[k]})" for k in per_step
         if k.startswith("gbt")) + f"; launches {gbt_launches}", flush=True)
     for name in ("leaf_route", "block_prox", "moments", "row_topk"):
         check(gbt_launches[name] > 0, f"{name} was not launched on the GBT "
               "path")
     check(gbt_launches["histogram"] == 0, "a regression fit launched K3")
+    check(gbt_launches["pair_topk"] == gbt_launches["pair_sums"] == 0,
+          "the GBT path left dense blocks for the collision path")
     ge = gk.engine
     Y2 = np.stack([yg_tr, np.ones(N_GBT)], axis=1)
     S2 = np.asarray(ge.W.T @ Y2)
@@ -2622,11 +2778,15 @@ def main() -> int:
           f"{index.n_ranges} column ranges of {index.range_w}), built in "
           f"{idx_ms:.3f} ms", flush=True)
     check(eng.leaf_mode(), "the acceptance engine takes the dense form")
-    # share of the warm train-side steps: each runs its K2 row blocks
+    # share of the warm train-side steps: each runs its K2 row blocks,
+    # unless the engine takes the collision path for them
     blocks_tr = -(-N_TRAIN // train_rows)
-    print(f"K2 in the warm train-side steps: {blocks_tr} blocks x "
-          f"{k2_tr_ms:.4f} ms = {blocks_tr * k2_tr_ms / 1e3:.4f} s of topk "
-          f"{warm['topk_train']:.4f} s and of squared_row_sums "
+    path_tr = "none: the collision path" if eng.collision_mode() \
+        else "dense blocks"
+    print(f"K2 in the warm train-side steps ({path_tr}): "
+          f"{blocks_tr} blocks x {k2_tr_ms:.4f} ms = "
+          f"{blocks_tr * k2_tr_ms / 1e3:.4f} s against topk "
+          f"{warm['topk_train']:.4f} s and squared_row_sums "
           f"{warm['squared_row_sums_train']:.4f} s", flush=True)
     # yardstick: cuSPARSE SpMM of W (CSR) with the dense rows of Q gives
     # P[rows, :]ᵀ in one PyTorch call
@@ -2851,8 +3011,9 @@ def main() -> int:
     app_warm = {}
     earlier = set(per_step)
     reset_counts()
-    # outliers: the train side (K2 row blocks bucketed by class), then the
-    # OOS batch (routed by K1) against the cached training statistics
+    # outliers: the train side (K2 row blocks bucketed by class, or leaf
+    # collisions), then the OOS batch (routed by K1) against the cached
+    # training statistics
     o_raw = counted("outlier_scores raw", lambda: fk.outlier_scores(
         normalize=False))
     o_norm = counted("outlier_scores", fk.outlier_scores)
@@ -2862,8 +3023,10 @@ def main() -> int:
     app_warm["oos_outlier_scores"] = warm_s(
         lambda: fk.oos_outlier_scores(Xte))
     # prototypes, the compressed engine and the nearest-prototype classifier
+    cr0 = collide_rows.value
     protos, _ = counted("prototypes", lambda: fk.prototypes(
         n_prototypes=N_PROTOS, k=PROTO_K))
+    cr_protos = collide_rows.value - cr0
     ce = counted("compress", lambda: fk.compress(n_prototypes=N_PROTOS,
                                                  k=PROTO_K))
     ce_pred = counted("compressed predict_oos", lambda: ce.predict(
@@ -2942,7 +3105,7 @@ def main() -> int:
     app_launches = read_counts()
     app_steps = [k for k in per_step if k not in earlier]
     print("applications path (s cold, s warm where a server repeats the "
-          "call, K1/K2/K3/K4/top-k launches): " + ", ".join(
+          f"call, {LAUNCHES} launches): " + ", ".join(
               f"{k} {wall[k]:.4f}"
               + (f" warm {app_warm[k]:.4f}" if k in app_warm else "")
               + f" ({per_step[k]})" for k in app_steps)
@@ -2957,8 +3120,16 @@ def main() -> int:
     for name in ("impute", "impute again"):
         check(int(per_step[name].split("/")[2]) > 0,
               f"{name} did not fit on the card through K3")
-    check(int(per_step["prototypes"].split("/")[4]) > 0,
-          "prototypes (k=50) did not select through row_topk")
+    # the prototypes' train-side top-k: row_topk on dense blocks, or the
+    # collision path where the engine's rule picks it
+    if collides:
+        check(cr_protos >= N_TRAIN and
+              int(per_step["prototypes"].split("/")[5]) > 0,
+              "prototypes (k=50) did not take the collision path "
+              f"({cr_protos:.0f} rows served)")
+    else:
+        check(int(per_step["prototypes"].split("/")[4]) > 0,
+              "prototypes (k=50) did not select through row_topk")
 
     # ---- phase 7 checks: each application against the port's CPU engine
     # on the same leaves ----
@@ -3369,7 +3540,7 @@ def main() -> int:
           f"{c_failed}, shed {c_shed} of {N_SERVE_REQ} (0 lost)", flush=True)
     serve_launches = read_counts()
     serve_steps = [k for k in per_step if k not in earlier]
-    print("serving path (s, K1/K2/K3/K4/top-k launches): " + ", ".join(
+    print(f"serving path (s, {LAUNCHES} launches): " + ", ".join(
         f"{k} {wall[k]:.3f} ({per_step[k]})" for k in serve_steps)
         + f"; launches {serve_launches}", flush=True)
     for name in ("leaf_route", "block_prox", "row_topk"):
@@ -3442,7 +3613,7 @@ def main() -> int:
 
     # ---- phase 9: the out-of-core pipeline on the card, counted ----
     budget_check(torch, dev, fk, Xtr, ytr, Xq, Xte, rows)
-    ooc_launches = phase9(torch, dev, OOC_ROWS, wrappers)
+    ooc_launches, pairs = phase9(torch, dev, OOC_ROWS, wrappers)
 
     # ---- phase 10: the LM serving path on the card ----
     lm_launches, lm_holds = phase10(torch, dev, wrappers)
@@ -3452,7 +3623,7 @@ def main() -> int:
     peak11 = phase11(torch, dev)
     torch.cuda.synchronize()
     train_launches = read_counts()
-    print(f"phase 11 launches K1/K2/K3/K4/top-k: "
+    print(f"phase 11 launches {LAUNCHES}: "
           f"{'/'.join(str(v) for v in train_launches.values())}", flush=True)
 
     # ---- phase 12: float32 factors and the sharded product ----
@@ -3463,7 +3634,7 @@ def main() -> int:
     arg_bytes13 = phase13(torch, dev)
     torch.cuda.synchronize()
     mesh_launches = read_counts()
-    print(f"phase 13 launches K1/K2/K3/K4/top-k: "
+    print(f"phase 13 launches {LAUNCHES}: "
           f"{'/'.join(str(v) for v in mesh_launches.values())}", flush=True)
 
     # ---- phase 14: the dry runs' results (no card, no kernel) ----
@@ -3559,6 +3730,20 @@ def main() -> int:
          "bound_ms": rt_main["bound_ms"], "bound_by": "bytes",
          "library_ms": rt_main["library_ms"]},
     ]
+    # the collision-pair kernels (phase 9 (d), on its largest row block;
+    # none: the reference's train-side ops write dense blocks)
+    for name, err in (("pair_topk", 0.0),       # bit for bit
+                      ("pair_sums", pairs.get("sums_abs_err"))):
+        op = name.split("_")[1]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/collide/csrc/collide.cu",
+            "replaces": None, "launches": total(name),
+            "max_abs_err": err if pairs else None,
+            "ms": pairs.get(f"{op}_ms"),
+            "plain_ms": pairs.get(f"{op}_plain_ms"),
+            "bound_ms": pairs.get(f"{op}_bound_ms"), "bound_by": "bytes",
+            "library_ms": None})
     print(f"K1 route (M={M}), ms a wrapper call / on the device: " +
           ", ".join(f"{k} {k1_times[k][0]:.4f} / {k1_times[k][1]:.4f} "
                     f"(bound {k1_bounds[k]:.5f})" for k in k1_shapes)

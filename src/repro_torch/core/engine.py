@@ -23,6 +23,10 @@ such call); with big leaves it runs the kernel's dense form.  A CUDA
 engine selects each block's top-k (k up to ``row_topk``'s ``MAX_K``) with
 the ``row_topk`` kernel in one read of the block; a wider k, and a CPU
 engine, take ``torch.topk`` and the tie rule (``_topk_rows``).
+Train-side (X=None) top-k and squared row sums of a CUDA engine whose
+training rows meet few reference columns (``collision_mode``) write no
+dense block: ``core/collide.py`` enumerates each row's leaf collisions
+from the leaf index and reduces them per (row, column).
 On a CPU engine the same calls take the kernels' plain versions, and large
 train-side top-k and squared row sums take the host CSR factors instead.
 Results are tensors on the engine's device, in the engine's dtype (top-k
@@ -35,11 +39,15 @@ With regions on (``obs.trace.set_regions``), ``topk`` and
 top-k selection, ``engine.spill_read`` around the tie rule's host read and
 ``engine.spill_redo`` around its exact redo (neither on the kernel's path),
 ``engine.class_ids`` around the class one-hot's build and
-``engine.class_sums`` around each block's squares and class sums.  Each
-``topk`` call on dense blocks adds its rows, the rows the tie rule redid
-and the rows the kernel selected to the process-wide counters
-``engine_topk_rows_total``, ``engine_topk_spill_rows_total`` and
-``engine_topk_kernel_rows_total``.
+``engine.class_sums`` around each block's squares and class sums; on the
+collision path ``engine.collide``, ``engine.collide_select`` and
+``engine.collide_sums`` (``core/collide.py``).  Each ``topk`` call on dense
+blocks adds its rows, the rows the tie rule redid and the rows the kernel
+selected to the process-wide counters ``engine_topk_rows_total``,
+``engine_topk_spill_rows_total`` and ``engine_topk_kernel_rows_total``;
+each call on the collision path adds its rows and the products it
+enumerated to ``engine_collide_rows_total`` and
+``engine_collisions_total``.
 
 With several cards, products on the training rows take the sharded path
 (``torch_ops.sharded_swlc_matmat`` over ``torch_ops.default_mesh()``: rows
@@ -50,7 +58,8 @@ Out of core, ``memory_budget_bytes`` bounds the transients: the CSR maps
 are built from row chunks of the device factors (``streamed_leaf_map``,
 indices and data spilled to scratch memmaps under ``factor_scratch_dir``
 when they alone exceed the budget), a block kernel call's rows shrink so a
-block and its squared copy fit half the budget, the bucket table of a wide
+block and its squared copy fit half the budget (a collision block's
+transients too), the bucket table of a wide
 product is built a few columns at a time, and the host CSR row blocks
 shrink.  None of it changes a result: the CSR maps, blocks, top-k and
 squared row sums keep their bits; products keep theirs on the CPU (on the
@@ -75,12 +84,13 @@ from scipy.sparse.linalg import LinearOperator
 
 from ..kernels.block_prox.ops import (LEAF_DENSITY_MAX, LeafIndex,
                                       block_prox, build_leaf_index,
-                                      leaf_density)
+                                      leaf_density, leaf_members)
+from ..kernels.collide.ops import MAX_K as PAIR_TOPK_MAX_K
 from ..kernels.row_topk.ops import MAX_K as ROW_TOPK_MAX_K
 from ..kernels.row_topk.ops import row_topk
 from ..obs.metrics import global_registry
 from ..obs.trace import region
-from . import torch_ops
+from . import collide, torch_ops
 from .context import EnsembleContext
 from .factorization import (full_kernel, prefix_leaf_contraction,
                             streamed_leaf_map, topk_neighbors)
@@ -105,6 +115,15 @@ _REF_CACHE_BYTES = 1 << 27
 # bits) however many rows its block kernel call held; block heights are
 # multiples of it.
 _SUM_ROWS = 32
+# Train-side top-k and squared row sums of a CUDA engine take the collision
+# path (``core/collide.py``) when a training row's products reach at most
+# this share of the reference columns (``collision_share``): on the H100 a
+# pass there took 0.31 of the dense path's time at a share of 0.0054 and
+# 0.91 at 0.0143 (100,000 rows, 15 trees), crossing at ~0.0157 (PERF.md
+# §6, PR 27).
+COLLIDE_SHARE_MAX = 0.015
+# A collision block's transients without a budget (under one: half of it).
+_COLLIDE_BYTES = 1 << 30
 # the factor dtypes an engine takes (the block kernel's two instantiations)
 _TORCH_DTYPE = {np.dtype(np.float64): torch.float64,
                 np.dtype(np.float32): torch.float32}
@@ -160,7 +179,8 @@ class ProximityEngine:
     # topk and squared row sums take the host CSR path: those are all-pairs
     # batch jobs where CSR restricts work to colliding pairs, while the
     # plain dense block pays the full N·N_ref·T.  A CUDA engine keeps them
-    # on the card, in ``block_prox`` row blocks, at every size.
+    # on the card at every size: on the collision path in collision mode,
+    # else in ``block_prox`` row blocks.
     _SPARSE_TRAIN_CUTOVER = 8192
 
     def __init__(self, ctx, assignment, forest=None, dtype=np.float64,
@@ -264,6 +284,13 @@ class ProximityEngine:
         self._leaf_index: Optional[LeafIndex] = None
         self._leaf_density: Optional[float] = None
         self._index_lock = threading.Lock()
+        # the collision path's plan: the training rows' cumulative products
+        # on the host, their share, the most trees a pair can meet in, and
+        # the row blocks of a cap
+        self._collide_cum: Optional[np.ndarray] = None
+        self._collide_share: Optional[float] = None
+        self._collide_depth = 0
+        self._collide_blocks: Tuple[int, list] = (0, [])
 
     @property
     def n_ref(self) -> int:
@@ -512,6 +539,58 @@ class ProximityEngine:
                                               self.total_leaves)
         return self._leaf_density <= LEAF_DENSITY_MAX
 
+    def collision_share(self) -> float:
+        """The mean share of the reference columns whose products a
+        training row enumerates on the collision path (Σ_t [q_t ≠ 0] times
+        its leaf's nonzero-weight members, over ``n_ref``), taken once;
+        infinite where a factor is negative (the path's zero fill assumes
+        none)."""
+        if self._collide_share is None:
+            per_row = collide.row_products(
+                leaf_members(self.gl, self.w, self.total_leaves), self.gl,
+                self.q)
+            self._collide_cum = np.concatenate(
+                [[0], np.cumsum(per_row.cpu().numpy())])
+            self._collide_depth = int((self.q != 0).sum(dim=1).max()) \
+                if self.n_ref else 0
+            negative = bool((self.q < 0).any()) or bool((self.w < 0).any())
+            self._collide_share = float("inf") if negative else \
+                float(self._collide_cum[-1]) / max(self.n_ref, 1) ** 2
+        return self._collide_share
+
+    def collision_mode(self) -> bool:
+        """Whether train-side top-k and squared row sums enumerate leaf
+        collisions rather than compare densely: when
+        ``collision_share`` is at most ``COLLIDE_SHARE_MAX``.  A CUDA
+        engine takes the path for them (:meth:`_collide_train`)."""
+        return self.collision_share() <= COLLIDE_SHARE_MAX
+
+    def _collide_train(self, X) -> bool:
+        return (self.device.type == "cuda" and X is None
+                and self.collision_mode())
+
+    def _collide_args(self) -> tuple:
+        """The collision path's arguments for the training rows: the leaf
+        index, the query factors, their cumulative products, the row blocks
+        (``_COLLIDE_BYTES`` of transients each, or half the budget) and the
+        most trees a pair can collide in; counts the call's rows and
+        products in ``engine_collide_rows_total`` and
+        ``engine_collisions_total``."""
+        self.collision_share()
+        cap = _COLLIDE_BYTES if self.memory_budget_bytes is None \
+            else min(_COLLIDE_BYTES, self.memory_budget_bytes // 2)
+        if self._collide_blocks[0] != cap:
+            self._collide_blocks = (cap, collide.row_blocks(
+                self._collide_cum, cap))
+        reg = global_registry()
+        reg.counter("engine_collide_rows_total",
+                    "query rows served on the collision path").inc(self.n_ref)
+        reg.counter("engine_collisions_total",
+                    "products the collision path enumerated"
+                    ).inc(int(self._collide_cum[-1]))
+        return (self.leaf_index(), self.gl, self.q, self._collide_cum,
+                self._collide_blocks[1], self._collide_depth)
+
     def _block(self, gl_q: torch.Tensor, q: torch.Tensor,
                cols=None) -> torch.Tensor:
         """P for query factors ``gl_q``/``q`` against every reference row
@@ -575,8 +654,9 @@ class ProximityEngine:
 
         With ``class_ids`` (N_ref,) the sum is bucketed by reference class:
         out[i, c] = Σ_{j: class_ids[j]=c} P(i,j)², shape (Nq, n_classes).
-        Dense device blocks, or host CSR row blocks for large train-side
-        jobs on a CPU engine — never a full dense P.
+        Dense device blocks, leaf collisions for train-side jobs on a CUDA
+        engine in ``collision_mode``, or host CSR row blocks for large
+        train-side jobs on a CPU engine — never a full dense P.
         """
         with region("engine.squared_row_sums"):
             qs = self.query_state(X)
@@ -584,6 +664,8 @@ class ProximityEngine:
                 class_ids, n_classes = _class_array(class_ids, n_classes)
                 return self._tensor(self._squared_row_sums_csr(
                     qs.Q, class_ids, n_classes, self._budget_block(block)))
+            if self._collide_train(X):
+                return self._collide_squared_row_sums(class_ids, n_classes)
             onehot = None
             if class_ids is not None:
                 with region("engine.class_ids"):
@@ -607,6 +689,16 @@ class ProximityEngine:
                             part.sum(dim=1) if onehot is None \
                             else part @ onehot
             return out
+
+    def _collide_squared_row_sums(self, class_ids, n_classes) -> torch.Tensor:
+        """Train-side squared row sums on the collision path."""
+        class_of = None
+        if class_ids is not None:
+            with region("engine.class_ids"):
+                class_ids, n_classes = _class_array(class_ids, n_classes)
+                class_of = self._tensor(class_ids, torch.int64)
+        return collide.squared_row_sums(*self._collide_args(), class_of,
+                                        n_classes)
 
     def _squared_row_sums_csr(self, Q, class_ids, n_classes,
                               block: int) -> np.ndarray:
@@ -685,10 +777,12 @@ class ProximityEngine:
         by ascending column (so the card and the host pick the same
         columns): dense device blocks reduced by the ``row_topk`` kernel
         on a CUDA engine with ``k`` up to its ``MAX_K`` and by ``torch.topk``
-        and the tie rule otherwise, or host CSR for large train-side jobs
-        on a CPU engine.  Returns (indices int64, values float64: a float32
-        engine's values widened, as the reference's scipy engine returns
-        them)."""
+        and the tie rule otherwise, leaf collisions for train-side jobs on
+        a CUDA engine in ``collision_mode`` (``k`` up to the pair kernel's
+        ``MAX_K``), or host CSR for large
+        train-side jobs on a CPU engine.  Returns (indices int64, values
+        float64: a float32 engine's values widened, as the reference's
+        scipy engine returns them)."""
         with region("engine.topk"):
             qs = self.query_state(X)
             if self._sparse_train(X):
@@ -696,6 +790,9 @@ class ProximityEngine:
                                           block=self._budget_block(block))
                 return (self._tensor(idx, torch.int64),
                         self._tensor(val, torch.float64))
+            if self._collide_train(X) and \
+                    min(k, self.n_ref) <= PAIR_TOPK_MAX_K:
+                return collide.topk(*self._collide_args(), k)
             kk = min(k, self.n_ref)
             dev = self.device
             kernel = dev.type == "cuda" and 0 < kk <= ROW_TOPK_MAX_K

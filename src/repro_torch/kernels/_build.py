@@ -29,7 +29,8 @@ __all__ = ["KERNEL_NAMES", "build", "load", "check", "nvcc_path"]
 
 _ROOT = Path(__file__).resolve().parent
 BUILD_DIR = _ROOT / "_build"
-KERNEL_NAMES = ("leaf_route", "block_prox", "histogram", "row_topk")
+KERNEL_NAMES = ("leaf_route", "block_prox", "histogram", "row_topk",
+                "collide")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

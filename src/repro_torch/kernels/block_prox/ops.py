@@ -27,8 +27,8 @@ from .. import _build
 from ..._tensor import require
 from .ref import block_prox_ref
 
-__all__ = ["LeafIndex", "build_leaf_index", "leaf_density", "leaf_plan",
-           "LEAF_DENSITY_MAX", "block_prox"]
+__all__ = ["LeafIndex", "build_leaf_index", "leaf_members", "leaf_density",
+           "leaf_plan", "LEAF_DENSITY_MAX", "block_prox"]
 
 # Reference columns are split into at most this many ranges, each a
 # multiple of the widest tile; the index keeps a member offset per (leaf,
@@ -123,14 +123,22 @@ def build_leaf_index(gl_w: torch.Tensor, w: torch.Tensor,
         range_w=width)
 
 
+def leaf_members(gl_w: torch.Tensor, w: torch.Tensor,
+                 n_leaves: int) -> torch.Tensor:
+    """(n_leaves,) int64: each leaf's nonzero-weight reference members (a
+    :class:`LeafIndex`'s ``offs[:, -1] - offs[:, 0]``).  ``gl_w`` holds
+    global leaf ids below ``n_leaves``."""
+    key = torch.where(w != 0, gl_w.long(), n_leaves).reshape(-1)
+    return torch.bincount(key, minlength=n_leaves + 1)[:n_leaves]
+
+
 def leaf_density(gl_w: torch.Tensor, w: torch.Tensor, n_leaves: int) -> float:
     """The share of the ``Nw`` reference columns that one (query row, tree)
     meets, for queries that fall into leaves as the references do: the
     size-biased mean of the leaves' nonzero-weight member counts, Σ m² /
     Σ m, over Nw.  ``gl_w`` holds global leaf ids below ``n_leaves``."""
     nw = gl_w.shape[0]
-    key = torch.where(w != 0, gl_w.long(), n_leaves).reshape(-1)
-    m = torch.bincount(key, minlength=n_leaves + 1)[:n_leaves].double()
+    m = leaf_members(gl_w, w, n_leaves).double()
     total = float(m.sum())
     return float((m * m).sum()) / total / nw if total else 0.0
 

@@ -1,0 +1,143 @@
+"""Collision-pair wrapper: the CUDA kernel for CUDA tensors, the plain
+version for CPU tensors, and nothing else.
+
+The collision path (``core/collide.py``) hands each row block's products
+here, sorted by the key ``row · n_ref + column`` with a pair's products in
+ascending tree order.  :func:`pair_topk` writes each row's exact top-k
+(values descending, equal values by ascending column, a row holding fewer
+than ``k`` pairs filled with value 0 at the smallest columns it does not
+hold); :func:`pair_sums` each row's squared pair values summed by class in
+column order.  Kernel and plain version give a pair's value the same bits
+(unfused adds in tree order), so their top-k agree bit for bit; the class
+sums add in column order from 0 in both, bit for bit on the CPU's plain
+version.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from .. import _build
+from ..._tensor import require
+from .ref import pair_sums_ref, pair_topk_ref
+
+__all__ = ["MAX_K", "pair_topk", "pair_sums"]
+
+MAX_K = 64               # the kernel's widest top-k (a thread's list)
+
+_LIB: Optional[ctypes.CDLL] = None
+_TOPK = {torch.float64: "collide_topk_f64", torch.float32: "collide_topk_f32"}
+_SUMS = {torch.float64: "collide_sums_f64", torch.float32: "collide_sums_f32"}
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("collide")
+        for name in _TOPK.values():
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [
+                ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_longlong,
+                                     ctypes.c_void_p, ctypes.c_longlong,
+                                     ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        for name in _SUMS.values():
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _check_products(key: torch.Tensor, prod: torch.Tensor) -> None:
+    require(key, torch.int64, "key")
+    if not isinstance(prod, torch.Tensor) or prod.dtype not in _TOPK:
+        raise TypeError(f"prod must be a torch.float64 or torch.float32 "
+                        f"tensor, got {getattr(prod, 'dtype', type(prod))}")
+    require(prod, prod.dtype, "prod", key.device)
+    if key.dim() != 1 or prod.shape != key.shape:
+        raise ValueError(f"need key and prod (n,); got {tuple(key.shape)}, "
+                         f"{tuple(prod.shape)}")
+
+
+def _row_stride(t: torch.Tensor) -> int:
+    return t.stride(0) if t.shape[0] > 1 else t.shape[1]
+
+
+def pair_topk(key: torch.Tensor, prod: torch.Tensor, n_ref: int, rows: int,
+              depth: int, idx: torch.Tensor, val: torch.Tensor) -> None:
+    """Write each of ``rows`` rows' ``kk = idx.shape[1]`` (at most
+    ``n_ref``) largest pair values into ``val`` (float64) and their columns
+    into ``idx`` (int64), both (rows, kk) with contiguous rows.  ``depth``
+    bounds a pair's products (the plain version's loop).  CPU tensors take
+    the plain version; CUDA tensors launch the kernel (counted in
+    ``pair_topk.launches``), or raise for ``kk`` beyond ``MAX_K``."""
+    _check_products(key, prod)
+    dev, kk = key.device, idx.shape[1]
+    require(idx, torch.int64, "idx", dev)
+    require(val, torch.float64, "val", dev)
+    if idx.shape != (rows, kk) or val.shape != (rows, kk) or kk > n_ref:
+        raise ValueError(f"need idx/val ({rows}, k <= {n_ref}); got "
+                         f"{tuple(idx.shape)}, {tuple(val.shape)}")
+    if dev.type == "cpu":
+        return pair_topk_ref(key, prod, n_ref, rows, depth, idx, val)
+    if dev.type != "cuda":
+        raise ValueError(f"pair_topk runs on 'cuda' or 'cpu', got {dev}")
+    if kk > MAX_K:
+        raise ValueError(f"pair_topk: k = {kk} beyond the kernel's {MAX_K}")
+    if rows == 0 or kk == 0:
+        return None
+    key, prod, lib = key.contiguous(), prod.contiguous(), _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, _TOPK[prod.dtype])(
+            key.data_ptr(), prod.data_ptr(), key.numel(), n_ref, rows, kk,
+            idx.data_ptr(), _row_stride(idx), val.data_ptr(),
+            _row_stride(val), stream)
+    _build.check(lib, err, "pair_topk launch")
+    pair_topk.launches += 1
+    return None
+
+
+def pair_sums(key: torch.Tensor, prod: torch.Tensor, n_ref: int, rows: int,
+              depth: int, class_of: Optional[torch.Tensor], n_classes: int,
+              out: torch.Tensor) -> None:
+    """Write each of ``rows`` rows' Σ_j P(i, j)², by the class
+    ``class_of[j]`` (int64, or None for one class), into ``out`` (rows ·
+    n_classes,) in ``prod``'s dtype.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel (counted in ``pair_sums.launches``)."""
+    _check_products(key, prod)
+    dev, C = key.device, 1 if class_of is None else int(n_classes)
+    require(out, prod.dtype, "out", dev)
+    if class_of is not None:
+        require(class_of, torch.int64, "class_of", dev)
+    if out.shape != (rows * C,):
+        raise ValueError(f"need out ({rows * C},); got {tuple(out.shape)}")
+    if dev.type == "cpu":
+        return pair_sums_ref(key, prod, n_ref, rows, depth, class_of, C,
+                             out)
+    if dev.type != "cuda":
+        raise ValueError(f"pair_sums runs on 'cuda' or 'cpu', got {dev}")
+    out.zero_()
+    if rows == 0:
+        return None
+    key, prod, lib = key.contiguous(), prod.contiguous(), _lib()
+    if class_of is not None:
+        class_of = class_of.contiguous()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, _SUMS[prod.dtype])(
+            key.data_ptr(), prod.data_ptr(), key.numel(), n_ref, rows,
+            None if class_of is None else class_of.data_ptr(), C,
+            out.data_ptr(), stream)
+    _build.check(lib, err, "pair_sums launch")
+    pair_sums.launches += 1
+    return None
+
+
+pair_topk.launches = 0
+pair_sums.launches = 0

@@ -475,28 +475,41 @@ def test_forest_kernel_runs_on_the_card(dev):
 
 def test_large_train_side_jobs_stay_on_the_card(dev, monkeypatch):
     """Above the CPU engine's sparse cutover, a CUDA engine still computes
-    train-side top-k and squared row sums in block-kernel row blocks, and
-    they match the CPU engine's host CSR results."""
+    train-side top-k and squared row sums on the card, in block-kernel row
+    blocks or, in collision mode, on the collision path (the rule forced
+    each way here), and both match the CPU engine's host CSR results."""
     from repro_torch.core import engine as eng_mod
     from repro_torch.core.api import ForestKernel
     from repro_torch.data.synthetic import gaussian_classes
+    from repro_torch.obs.metrics import global_registry
     X, y = gaussian_classes(1500, d=8, n_classes=3, seed=5)
     kw = dict(kernel_method="gap", n_trees=12, seed=4)
     gpu = ForestKernel(device="cuda", **kw).fit(X, y)
     cpu = ForestKernel(device="cpu", **kw).fit(X, y)
     monkeypatch.setattr(eng_mod.ProximityEngine, "_SPARSE_TRAIN_CUTOVER", 10)
-    n0 = block_prox.launches
-    got_s = gpu.engine.squared_row_sums(y, 3)
-    got_i, got_v = gpu.engine.topk(6)
-    torch.cuda.synchronize()
-    assert block_prox.launches >= n0 + 2
     want_s = cpu.engine.squared_row_sums(y, 3)
     want_v = cpu.engine.topk(6)[1]
-    torch.testing.assert_close(got_s.cpu(), want_s, rtol=0, atol=1e-8)
-    torch.testing.assert_close(got_v.cpu(), want_v, rtol=0, atol=1e-8)
     P = cpu.engine.kernel_block()
-    torch.testing.assert_close(P.gather(1, got_i.cpu()), got_v.cpu(),
-                               rtol=0, atol=1e-8)
+
+    def served():
+        snap = global_registry().snapshot()
+        return snap.get("engine_collide_rows_total", {}).get(
+            "series", {}).get("", 0.0)
+    for share_max in (float("-inf"), float("inf")):
+        monkeypatch.setattr(eng_mod, "COLLIDE_SHARE_MAX", share_max)
+        n0, s0 = block_prox.launches, served()
+        got_s = gpu.engine.squared_row_sums(y, 3)
+        got_i, got_v = gpu.engine.topk(6)
+        torch.cuda.synchronize()
+        if share_max < 0:
+            assert block_prox.launches >= n0 + 2 and served() == s0
+        else:
+            assert block_prox.launches == n0
+            assert served() == s0 + 2 * len(X)
+        torch.testing.assert_close(got_s.cpu(), want_s, rtol=0, atol=1e-8)
+        torch.testing.assert_close(got_v.cpu(), want_v, rtol=0, atol=1e-8)
+        torch.testing.assert_close(P.gather(1, got_i.cpu()), got_v.cpu(),
+                                   rtol=0, atol=1e-8)
 
 
 # ------------------------------------------------ applications, views

@@ -10,15 +10,16 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 # chip_smoke.py, the gloo-world and dry-run workers of the port's tests,
-# the DTensor probe and the LM A/B timer, and the bf16 and float32
-# contracts chip_smoke shares with the tests
+# the DTensor probe, the LM A/B timer and the collision crossover probe,
+# and the bf16 and float32 contracts chip_smoke shares with the tests
 FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                      ROOT / "tests" / "_lm_contract.py",
                                      ROOT / "tests" / "_f32_contract.py",
                                      ROOT / "tests" / "_torch_dist_worker.py",
                                      ROOT / "tests" / "_torch_dryrun_cells.py",
                                      ROOT / "tests" / "_dtensor_probe.py",
-                                     ROOT / "tests" / "_lm_ab.py"]
+                                     ROOT / "tests" / "_lm_ab.py",
+                                     ROOT / "tests" / "_collide_probe.py"]
 
 
 def _module_names():

@@ -8,13 +8,16 @@ top-k counters count exactly the rows ``_topk_rows`` flags.  The tests
 marked ``cuda`` (skipped without a card) hold K2's launch counts by form
 to the form the engine picks, and the card engine's top-k through the
 ``row_topk`` kernel to its ``torch.topk`` path: the same answers, the
-kernel's counts, and no tie-rule host read.
+kernel's counts, and no tie-rule host read.  They keep the card engine's
+train-side calls on dense blocks (``dense_blocks``); the collision path's
+spans and counters are ``tests/test_torch_collide.py``'s.
 """
 import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.core import engine as eng_mod
 from repro_torch.core.api import ForestKernel
 from repro_torch.core.engine import _topk_rows, _topk_rows_exact
 from repro_torch.data.synthetic import friedman1, gaussian_classes
@@ -207,6 +210,12 @@ def dev():
     return torch.device("cuda", 0)
 
 
+@pytest.fixture
+def dense_blocks(monkeypatch):
+    """No engine in collision mode: train-side calls on dense blocks."""
+    monkeypatch.setattr(eng_mod, "COLLIDE_SHARE_MAX", float("-inf"))
+
+
 def _card_engine(kind, dtype=np.float64):
     rng = np.random.default_rng(7)
     if kind == "leaf":                 # random labels: one-sample leaves
@@ -224,7 +233,7 @@ def _card_engine(kind, dtype=np.float64):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["leaf", "dense"])
-def test_card_counts_launches_by_form(dev, regions_off, kind):
+def test_card_counts_launches_by_form(dev, dense_blocks, regions_off, kind):
     eng, cls = _card_engine(kind)
     assert eng.leaf_mode() == (kind == "leaf")
     before = dict(block_prox.form_launches)
@@ -240,7 +249,8 @@ def test_card_counts_launches_by_form(dev, regions_off, kind):
 
 
 @pytest.mark.cuda
-def test_card_answers_bit_identical_with_regions_on(dev, regions_off):
+def test_card_answers_bit_identical_with_regions_on(dev, dense_blocks,
+                                                    regions_off):
     eng, cls = _card_engine("leaf")
     off = (*eng.topk(k=K), eng.squared_row_sums(class_ids=cls, n_classes=5))
     set_regions(True)
@@ -274,8 +284,9 @@ def _torch_topk_path(eng, k):
 @pytest.mark.parametrize("dtype", [np.float64, np.float32],
                          ids=["f64", "f32"])
 @pytest.mark.parametrize("kind", ["leaf", "dense"])
-def test_card_topk_kernel_equals_torch_topk_path(dev, regions_off,
-                                                 fresh_global, kind, dtype):
+def test_card_topk_kernel_equals_torch_topk_path(dev, dense_blocks,
+                                                 regions_off, fresh_global,
+                                                 kind, dtype):
     """k = 10 and 50, in one block and in 64-row blocks: the kernel's
     answer is the torch.topk path's, one launch a block, every row counted
     as the kernel's and none as spilled."""
@@ -298,7 +309,8 @@ def test_card_topk_kernel_equals_torch_topk_path(dev, regions_off,
 
 
 @pytest.mark.cuda
-def test_card_topk_kernel_path_reads_nothing_back(dev, regions_off):
+def test_card_topk_kernel_path_reads_nothing_back(dev, dense_blocks,
+                                                  regions_off):
     """On the kernel's path a top-k call has no tie-rule host read or
     redo: no ``engine.spill_read`` or ``engine.spill_redo`` range, and
     ``engine.select`` still around each block's selection."""
