@@ -479,9 +479,10 @@ def pair_kernel_check(torch, eng, y, n_classes, k):
     train-side row blocks (the first, the one holding the most products and
     the last): ``pair_topk`` bit for bit at ``k`` and at the kernel's
     widest top-k, ``pair_sums`` class-bucketed and unbucketed within
-    ``PAIR_SUMS_RTOL`` of each entry; both timed beside their plain
-    versions on the largest block.  Leaves every launch count as it found
-    it."""
+    ``PAIR_SUMS_RTOL`` of each entry; both timed on each of the three
+    (``times``: block, its longest row's products, top-k ms, sums ms), and
+    beside their plain versions on the largest block.  Leaves every launch
+    count as it found it."""
     from repro_torch.core import collide
     from repro_torch.kernels.collide.ops import MAX_K, pair_sums, pair_topk
     from repro_torch.kernels.collide.ref import pair_sums_ref, pair_topk_ref
@@ -492,7 +493,7 @@ def pair_kernel_check(torch, eng, y, n_classes, k):
     sizes = [int(cum[i1] - cum[i0]) for i0, i1 in blocks]
     picked = sorted({0, int(np.argmax(sizes)), len(blocks) - 1})
     out = {"blocks": len(blocks), "checked": [], "sums_abs_err": 0.0,
-           "sums_rel_err": 0.0}
+           "sums_rel_err": 0.0, "times": []}
     for b in picked:
         i0, i1 = blocks[b]
         rows, n_prod = i1 - i0, sizes[b]
@@ -525,22 +526,25 @@ def pair_kernel_check(torch, eng, y, n_classes, k):
             out["sums_rel_err"] = max(out["sums_rel_err"], rel)
         out["checked"].append(
             (b, rows, n_prod, pairs, int((held < k).sum())))
+        kk = min(k, n_ref)
+        idx = torch.empty((rows, kk), dtype=torch.int64, device=dev)
+        val = torch.empty((rows, kk), dtype=torch.float64, device=dev)
+        sq = torch.empty(rows * n_classes, dtype=prod.dtype, device=dev)
+        out["times"].append((
+            b, int(np.diff(cum[i0:i1 + 1]).max()),
+            cuda_ms(torch, lambda: pair_topk(key, prod, n_ref, rows, depth,
+                                             idx, val), 5),
+            cuda_ms(torch, lambda: pair_sums(key, prod, n_ref, rows, depth,
+                                             class_of, n_classes, sq), 5)))
         if b == int(np.argmax(sizes)):
-            kk = min(k, n_ref)
-            idx = torch.empty((rows, kk), dtype=torch.int64, device=dev)
-            val = torch.empty((rows, kk), dtype=torch.float64, device=dev)
-            sq = torch.empty(rows * n_classes, dtype=prod.dtype, device=dev)
             read = n_prod * (key.element_size() + prod.element_size())
             out.update({
-                "topk_ms": cuda_ms(torch, lambda: pair_topk(
-                    key, prod, n_ref, rows, depth, idx, val), 5),
+                "topk_ms": out["times"][-1][2],
                 "topk_plain_ms": cuda_ms(torch, lambda: pair_topk_ref(
                     key, prod, n_ref, rows, depth, idx, val), 2),
                 "topk_bound_ms": (read + rows * kk * 16) / HBM_BYTES_S
                 * 1e3,
-                "sums_ms": cuda_ms(torch, lambda: pair_sums(
-                    key, prod, n_ref, rows, depth, class_of, n_classes,
-                    sq), 5),
+                "sums_ms": out["times"][-1][3],
                 "sums_plain_ms": cuda_ms(torch, lambda: pair_sums_ref(
                     key, prod, n_ref, rows, depth, class_of, n_classes,
                     sq), 2),
@@ -896,7 +900,10 @@ def phase9(torch, dev, n_rows, wrappers):
               f"{pairs['topk_plain_ms']:.3f} / "
               f"{pairs['topk_bound_ms']:.4f}, sums {pairs['sums_ms']:.4f} "
               f"/ {pairs['sums_plain_ms']:.3f} / "
-              f"{pairs['sums_bound_ms']:.4f}", flush=True)
+              f"{pairs['sums_bound_ms']:.4f}; a call on each (block, "
+              "longest row's products, top-k ms, sums ms) "
+              + ", ".join(f"({b}, {n}, {t:.4f}, {u:.4f})"
+                          for b, n, t, u in pairs["times"]), flush=True)
     return ooc_launches, pairs
 
 

@@ -47,7 +47,9 @@ selected to the process-wide counters ``engine_topk_rows_total``,
 ``engine_topk_spill_rows_total`` and ``engine_topk_kernel_rows_total``;
 each call on the collision path adds its rows and the products it
 enumerated to ``engine_collide_rows_total`` and
-``engine_collisions_total``.
+``engine_collisions_total`` and, on the card, the rows the pair kernels
+split over warps (more than ``split_products`` products, from the
+cumulative counts) to ``engine_collide_split_rows_total``.
 
 With several cards, products on the training rows take the sharded path
 (``torch_ops.sharded_swlc_matmat`` over ``torch_ops.default_mesh()``: rows
@@ -86,6 +88,7 @@ from ..kernels.block_prox.ops import (LEAF_DENSITY_MAX, LeafIndex,
                                       block_prox, build_leaf_index,
                                       leaf_density, leaf_members)
 from ..kernels.collide.ops import MAX_K as PAIR_TOPK_MAX_K
+from ..kernels.collide.ops import split_products
 from ..kernels.row_topk.ops import MAX_K as ROW_TOPK_MAX_K
 from ..kernels.row_topk.ops import row_topk
 from ..obs.metrics import global_registry
@@ -285,12 +288,13 @@ class ProximityEngine:
         self._leaf_density: Optional[float] = None
         self._index_lock = threading.Lock()
         # the collision path's plan: the training rows' cumulative products
-        # on the host, their share, the most trees a pair can meet in, and
-        # the row blocks of a cap
+        # on the host, their share, the most trees a pair can meet in, the
+        # row blocks of a cap and the rows longer than a split
         self._collide_cum: Optional[np.ndarray] = None
         self._collide_share: Optional[float] = None
         self._collide_depth = 0
         self._collide_blocks: Tuple[int, list] = (0, [])
+        self._collide_split: Tuple[int, int] = (0, 0)
 
     @property
     def n_ref(self) -> int:
@@ -575,19 +579,28 @@ class ProximityEngine:
         (``_COLLIDE_BYTES`` of transients each, or half the budget) and the
         most trees a pair can collide in; counts the call's rows and
         products in ``engine_collide_rows_total`` and
-        ``engine_collisions_total``."""
+        ``engine_collisions_total``, and on the card the rows the pair
+        kernels split in ``engine_collide_split_rows_total``."""
         self.collision_share()
         cap = _COLLIDE_BYTES if self.memory_budget_bytes is None \
             else min(_COLLIDE_BYTES, self.memory_budget_bytes // 2)
         if self._collide_blocks[0] != cap:
             self._collide_blocks = (cap, collide.row_blocks(
                 self._collide_cum, cap))
+        split = split_products(self._collide_depth)
+        if self._collide_split[0] != split:
+            self._collide_split = (split, int(
+                (np.diff(self._collide_cum) > split).sum()))
         reg = global_registry()
         reg.counter("engine_collide_rows_total",
                     "query rows served on the collision path").inc(self.n_ref)
         reg.counter("engine_collisions_total",
                     "products the collision path enumerated"
                     ).inc(int(self._collide_cum[-1]))
+        if self.device.type == "cuda":
+            reg.counter("engine_collide_split_rows_total",
+                        "rows the collision-pair kernels split over warps"
+                        ).inc(self._collide_split[1])
         return (self.leaf_index(), self.gl, self.q, self._collide_cum,
                 self._collide_blocks[1], self._collide_depth)
 

@@ -3,9 +3,10 @@
 Every ``kernels/<name>/csrc/<name>.cu`` is compiled on first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 into a shared library with a plain C interface, which is loaded with
-``ctypes``.  Each library is named by a hash of its source and flags and
-written under ``kernels/_build/`` (listed in ``.gitignore``), so a changed
-source rebuilds and an unchanged one is reused within a checkout.
+``ctypes``.  Each library is named by a hash of its source, the headers the
+sources share (``kernels/*/csrc/*.cuh``) and the flags, and written under
+``kernels/_build/`` (listed in ``.gitignore``), so a changed source or
+header rebuilds and an unchanged one is reused within a checkout.
 
 ``--use_fast_math`` is deliberately absent: routing relies on ``x <= thr``
 being false for NaN, the proximity kernel on IEEE float64 products, and
@@ -64,6 +65,8 @@ def _source(name: str) -> Path:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256(_source(name).read_bytes())
+    for header in sorted(_ROOT.glob("*/csrc/*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 

@@ -10,7 +10,11 @@ hold); :func:`pair_sums` each row's squared pair values summed by class in
 column order.  Kernel and plain version give a pair's value the same bits
 (unfused adds in tree order), so their top-k agree bit for bit; the class
 sums add in column order from 0 in both, bit for bit on the CPU's plain
-version.
+version.  On the card a row of more than :func:`split_products` products
+is split over several warps: for the top-k each slice keeps its own list
+and a second launch merges them (the order is total, so the answer is the
+same); for the sums each slice writes its pairs' squares and classes, and
+a second launch adds them a lane a class in column order (the same adds).
 """
 from __future__ import annotations
 
@@ -23,9 +27,15 @@ from .. import _build
 from ..._tensor import require
 from .ref import pair_sums_ref, pair_topk_ref
 
-__all__ = ["MAX_K", "pair_topk", "pair_sums"]
+__all__ = ["MAX_K", "split_products", "pair_topk", "pair_sums"]
 
-MAX_K = 64               # the kernel's widest top-k (a thread's list)
+MAX_K = 64               # the kernel's widest top-k (two entries a lane)
+# Products a warp takes of a row: a launch lasts as long as its longest
+# warp, and in the million-row deployment a block's longest row (about
+# 20,000 products) alone took 60-80% of its top-k and sums in one warp on
+# the H100; slices of 1,024 products took 6% off a block's sums and 15%
+# off its top-k against slices of 2,048 there.
+SPLIT = 1024
 
 _LIB: Optional[ctypes.CDLL] = None
 _TOPK = {torch.float64: "collide_topk_f64", torch.float32: "collide_topk_f32"}
@@ -39,15 +49,15 @@ def _lib() -> ctypes.CDLL:
         for name in _TOPK.values():
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [
-                ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_longlong,
-                                     ctypes.c_void_p, ctypes.c_longlong,
-                                     ctypes.c_void_p]
+                ctypes.c_int] * 2 + [ctypes.c_longlong] + [
+                ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p,
+                                        ctypes.c_longlong, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         for name in _SUMS.values():
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [
                 ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_void_p]
+                ctypes.c_longlong] + [ctypes.c_void_p] * 5
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -66,6 +76,13 @@ def _check_products(key: torch.Tensor, prod: torch.Tensor) -> None:
 
 def _row_stride(t: torch.Tensor) -> int:
     return t.stride(0) if t.shape[0] > 1 else t.shape[1]
+
+
+def split_products(depth: int) -> int:
+    """Rows with more products than this are split over warps on the card:
+    ``SPLIT``, or ``MAX_K`` times ``depth`` (the most products of a pair)
+    where that is more, so a split row holds at least ``MAX_K`` pairs."""
+    return max(SPLIT, MAX_K * int(depth))
 
 
 def pair_topk(key: torch.Tensor, prod: torch.Tensor, n_ref: int, rows: int,
@@ -92,12 +109,17 @@ def pair_topk(key: torch.Tensor, prod: torch.Tensor, n_ref: int, rows: int,
     if rows == 0 or kk == 0:
         return None
     key, prod, lib = key.contiguous(), prod.contiguous(), _lib()
+    split = split_products(depth)
+    # the lists of a split row's slices: a row's first, then a segment's
+    lists = (rows + -(-key.numel() // split)) * kk
+    sv = torch.empty(lists, dtype=prod.dtype, device=dev)
+    sc = torch.empty(lists, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, _TOPK[prod.dtype])(
             key.data_ptr(), prod.data_ptr(), key.numel(), n_ref, rows, kk,
-            idx.data_ptr(), _row_stride(idx), val.data_ptr(),
-            _row_stride(val), stream)
+            split, sv.data_ptr(), sc.data_ptr(), idx.data_ptr(),
+            _row_stride(idx), val.data_ptr(), _row_stride(val), stream)
     _build.check(lib, err, "pair_topk launch")
     pair_topk.launches += 1
     return None
@@ -122,18 +144,23 @@ def pair_sums(key: torch.Tensor, prod: torch.Tensor, n_ref: int, rows: int,
                              out)
     if dev.type != "cuda":
         raise ValueError(f"pair_sums runs on 'cuda' or 'cpu', got {dev}")
-    out.zero_()
     if rows == 0:
         return None
     key, prod, lib = key.contiguous(), prod.contiguous(), _lib()
     if class_of is not None:
         class_of = class_of.contiguous()
+    n, split = key.numel(), split_products(depth)
+    # a split row's pairs: squares and classes, and their count a slice
+    pv = torch.empty(n, dtype=prod.dtype, device=dev)
+    pc = torch.empty(n, dtype=torch.int32, device=dev)
+    count = torch.empty(rows + -(-n // split), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, _SUMS[prod.dtype])(
-            key.data_ptr(), prod.data_ptr(), key.numel(), n_ref, rows,
-            None if class_of is None else class_of.data_ptr(), C,
-            out.data_ptr(), stream)
+            key.data_ptr(), prod.data_ptr(), n, n_ref, rows,
+            None if class_of is None else class_of.data_ptr(), C, split,
+            pv.data_ptr(), pc.data_ptr(), count.data_ptr(), out.data_ptr(),
+            stream)
     _build.check(lib, err, "pair_sums launch")
     pair_sums.launches += 1
     return None

@@ -9,8 +9,9 @@ squared sums within 1e-12 of each row's largest; rows with fewer than k
 nonzeros, all-zero rows and ties; the same bits at every block height and
 under a budget; the rule (``ProximityEngine.collision_mode``) on a deep
 RF-GAP forest and on a booster; the spans and counters; the collision-pair
-kernel's per-row walk (``kernels/collide/csrc/collide.cu``) replayed in
-numpy against its plain version.  A CPU engine keeps its own paths, so the
+kernel's warp walk (``kernels/collide/csrc/collide.cu``) replayed in numpy
+against its plain version, on forests' products and on products built to
+break it.  A CPU engine keeps its own paths, so the
 tests send train-side calls down the collision path by patching
 ``_collide_train``; the marked tests hold the kernel on the card to its
 plain version bit for bit and the card's collision path to its K2 blocks.
@@ -34,6 +35,8 @@ from repro_torch.kernels.collide import ops as pair_ops
 from repro_torch.kernels.block_prox.ref import block_prox_ref
 from repro_torch.obs import MetricsRegistry, global_registry, set_regions
 from repro_torch.obs.metrics import set_global_registry
+
+from _warp_topk import INT_MAX, WarpTopK
 
 REF = Path(__file__).resolve().parents[1] / "perfbench" / "reference"
 TOL = 1e-12
@@ -332,73 +335,179 @@ def test_counters_and_spans(fresh_global, regions_off, collide_on_cpu,
     assert "engine_topk_rows_total" not in snap
 
 
-def _kernel_replay(key, prod, n_ref, rows, k):
-    """The CUDA source's per-row walk in numpy (``csrc/collide.cu``): a
-    binary search for the row's products, unfused adds per pair, a sorted
-    list that a pair enters only when strictly larger than its k-th, and
-    the fill; plus the class sums' walk (one class here)."""
+def _kernel_replay(key, prod, n_ref, rows, depth, k, classes=((None, 1),)):
+    """The CUDA source's warp walk in numpy (``csrc/collide.cu``), lane by
+    lane: a slice of a row's products 32 a chunk, lane 0 comparing with the
+    entry before the chunk; each run's head adding the run forward,
+    unfused, across chunks.  Top-k: a row of at most ``split_products``
+    products in one warp (``WarpTopK``: threshold, buffer, bitonic merges;
+    the fill of a row holding fewer than k pairs by ballot), a longer row's
+    slices (its first ``split``, then the segments ``[g split, (g + 1)
+    split)`` past them) each in its own, their lists merged as stage 2
+    does.  Class sums: a lane a class, the pairs in column order, for each
+    ``(class_of, C)`` of ``classes`` (a split row's slices write their
+    pairs in column order and one warp adds them: the same adds, so one
+    walk of the row replays both).  Returns (idx, val, [sums (rows, C),
+    ...])."""
     key, prod = key.numpy(), prod.numpy()
+    dt, n = prod.dtype.type, key.size
+    lanes = np.arange(32)
+    split = pair_ops.split_products(depth)
     idx = np.zeros((rows, k), np.int64)
     val = np.zeros((rows, k))
-    sums = np.zeros(rows, prod.dtype)
+    sums = [np.zeros((rows, C), dt) for _, C in classes]
+    cls = [np.zeros(n_ref, np.int64) if c is None else c.numpy()
+           for c, _ in classes]
+
+    def at(p, hi):
+        ok = p < hi
+        p = np.minimum(p, n - 1)
+        return np.where(ok, key[p], -1), np.where(ok, prod[p], 0).astype(dt)
+
+    def walk(s0, s1, lo, hi, base):
+        """(head, col, v) a chunk, for the pairs headed in [s0, s1)."""
+        prev = key[s0 - 1] if s0 > lo else -1
+        for p0 in range(s0, s1, 32):
+            kc, vc = at(p0 + lanes, hi)
+            head = (kc >= 0) & (kc != np.concatenate([[prev], kc[:-1]])) \
+                & (p0 + lanes < s1)
+            v, more, d = vc.copy(), head.copy(), 1
+            while more.any():
+                kq, vq = at(p0 + lanes + d, hi)
+                more &= kq == kc
+                v = np.where(more, v + vq, v)
+                d += 1
+            yield head, np.where(head, kc - base, 0), v
+            prev = kc[31]
+
+    def listed(s0, s1, lo, hi, base):
+        top, held = WarpTopK(k, dt), 0
+        for head, col, v in walk(s0, s1, lo, hi, base):
+            held += int(head.sum())
+            top.push(v, col, head)
+        top.flush()
+        return top, held
+
     for r in range(rows):
         base = r * n_ref
-        p = np.searchsorted(key, base, "left")
-        hi = np.searchsorted(key, base + n_ref, "left")
-        tv, tc = [], []
-        while p < hi:
-            kv, v = key[p], prod[p]
-            p += 1
-            while p < hi and key[p] == kv:
-                v = prod.dtype.type(v + prod[p])
-                p += 1
-            sums[r] = prod.dtype.type(sums[r] + prod.dtype.type(v * v))
-            dv = float(v)
-            if len(tv) < k:
-                j = len(tv)
-                tv.append(dv)
-                tc.append(kv - base)
-            elif dv > tv[k - 1]:
-                j = k - 1
-            else:
-                continue
-            while j > 0 and dv > tv[j - 1]:
-                tv[j], tc[j] = tv[j - 1], tc[j - 1]
-                j -= 1
-            tv[j], tc[j] = dv, kv - base
-        held, c = len(tv), 0
-        for _ in range(held, k):
-            while c in tc[:held]:
-                c += 1
-            tv.append(0.0)
-            tc.append(c)
-            c += 1
-        idx[r], val[r] = tc, tv
+        lo, hi = np.searchsorted(key, [base, base + n_ref])
+        if hi - lo <= split:
+            top, held = listed(lo, hi, lo, hi, base)
+            tv, tc = top.entries()
+            m = min(held, k)
+            held_cols = set(tc[:m].tolist())
+            fill = [c for c in range(k) if c not in held_cols][:k - m]
+            idx[r] = np.concatenate([tc[:m], fill])
+            val[r, :m] = tv[:m]
+        else:
+            slices = [(lo, lo + split)] + [
+                (max(g * split, lo + split), min((g + 1) * split, hi))
+                for g in range(lo // split + 1, (hi - 1) // split + 1)]
+            merged = WarpTopK(k, dt)
+            for s0, s1 in slices:
+                tv, tc = listed(s0, s1, lo, hi, base)[0].entries()
+                for j0 in range(0, -(-k // 32) * 32, 32):
+                    j = j0 + lanes
+                    ok = j < k
+                    jj = np.minimum(j, k - 1)
+                    merged.push(np.where(ok, tv[jj], 0).astype(dt),
+                                np.where(ok, tc[jj], INT_MAX), ok)
+            merged.flush()
+            tv, tc = merged.entries()
+            idx[r], val[r] = tc, tv
+        for head, col, v in walk(lo, hi, lo, hi, base):
+            sq = v * v
+            for c, out in zip(cls, sums):
+                for j in np.flatnonzero(head):      # lanes: column order
+                    out[r, c[col[j]]] = dt(out[r, c[col[j]]] + sq[j])
     return idx, val, sums
 
 
 @pytest.mark.parametrize("name", list(FORESTS))
 @pytest.mark.parametrize("k", [1, 10, 50])
 def test_kernel_walk_gives_the_plain_version(forests, name, k):
-    """The kernel's per-row walk (replayed in numpy) against the plain
-    version on a forest's sorted products: top-k bit for bit, the unbucketed
-    sums too (the plain version adds them in column order on the CPU)."""
-    fk, _ = forests[name]
+    """The kernel's warp walk (replayed in numpy) against the plain version
+    on a forest's sorted products: top-k bit for bit, the sums too,
+    unbucketed and by the forest's 5 classes (the plain version adds them
+    in column order on the CPU)."""
+    fk, y = forests[name]
     eng = fk.engine
     index, gl, q, cum, blocks, depth = eng._collide_args()
     rows = min(eng.n_ref, 300)
     from repro_torch.core.collide import _collide
     key, prod = _collide(index, gl[:rows], q[:rows], int(cum[rows]))
-    kk = min(k, eng.n_ref)
-    idx = torch.zeros((rows, kk), dtype=torch.int64)
-    val = torch.zeros((rows, kk), dtype=torch.float64)
-    pair_ops.pair_topk(key, prod, eng.n_ref, rows, depth, idx, val)
-    out = torch.zeros(rows, dtype=prod.dtype)
-    pair_ops.pair_sums(key, prod, eng.n_ref, rows, depth, None, 1, out)
-    ri, rv, rs = _kernel_replay(key, prod, eng.n_ref, rows, kk)
+    cls = torch.as_tensor(y, dtype=torch.int64)
+    _against_the_plain_version(key, prod, eng.n_ref, rows, depth,
+                               min(k, eng.n_ref), ((None, 1), (cls, 5)))
+
+
+def _against_the_plain_version(key, prod, n_ref, rows, depth, k, classes):
+    idx = torch.zeros((rows, k), dtype=torch.int64)
+    val = torch.zeros((rows, k), dtype=torch.float64)
+    pair_ops.pair_topk(key, prod, n_ref, rows, depth, idx, val)
+    ri, rv, rs = _kernel_replay(key, prod, n_ref, rows, depth, k, classes)
     assert np.array_equal(idx.numpy(), ri)
     assert np.array_equal(val.numpy(), rv)
-    assert np.array_equal(out.numpy(), rs)
+    for (c, C), want in zip(classes, rs):
+        out = torch.zeros(rows * C, dtype=prod.dtype)
+        pair_ops.pair_sums(key, prod, n_ref, rows, depth, c, C, out)
+        assert np.array_equal(out.numpy().reshape(rows, C), want)
+
+
+def _synthetic(long_row, dtype, seed=5):
+    """One row block's sorted products, built against the warp walk: (key,
+    prod, n_ref, rows, depth).  Row 0 holds none; row 1 three pairs (fewer
+    than k); row 2 runs that cross 32-entry chunks, one in 70 trees (past
+    the next chunk too) and one in 33; row 3 ``long_row`` products (past
+    ``split_products(70)`` = 4,480, the kernel's top-k splits it); row 4
+    pairs of two values made to tie, at the k-th place too; row 5 random
+    pairs."""
+    rng = np.random.default_rng(seed)
+    n_ref = max(4096, 2 * long_row)
+
+    def random_row(n_products, levels=None):
+        runs = []
+        while sum(runs) < n_products:
+            runs.append(int(rng.integers(1, 6)))
+        cols = np.sort(rng.choice(n_ref, len(runs), replace=False))
+        if levels is None:
+            vals = [rng.random(m) + 1e-3 for m in runs]
+        else:
+            vals = [rng.choice(levels, m) for m in runs]
+        return list(zip(cols.tolist(), vals))
+
+    crossing = [1] * 30 + [5] + [1] * 20 + [70] + [1] * 9 + [33] + [2] * 40
+    rows = [
+        [],
+        [(2, rng.random(2)), (7, rng.random(1)), (11, rng.random(3))],
+        [(3 * j, rng.random(m)) for j, m in enumerate(crossing)],
+        random_row(long_row),
+        random_row(600, levels=np.array([0.25, 0.5])),
+        random_row(1500),
+    ]
+    key = np.concatenate([[r * n_ref + c] * len(v) for r, pairs in
+                          enumerate(rows) for c, v in pairs])
+    prod = np.concatenate([v for pairs in rows for _, v in pairs])
+    return (torch.as_tensor(key, dtype=torch.int64),
+            torch.as_tensor(prod.astype(dtype)), n_ref, len(rows), 70)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("C", [1, 5, 40])
+@pytest.mark.parametrize("k", [1, 10, 50, 64])
+def test_kernel_walk_on_synthetic_products(dtype, C, k):
+    """The warp walk against the plain version on built products: a row
+    of none, one of fewer than k pairs, runs across chunk boundaries (one
+    past the next chunk), a row of more than 32 x 64 products (its top-k
+    split over two warps and merged), ties at the k-th value; top-k and
+    the sums by C classes (one: unbucketed; 40: two classes a lane) bit
+    for bit."""
+    key, prod, n_ref, rows, depth = _synthetic(5000, dtype)
+    cls = None if C == 1 else torch.as_tensor(
+        np.random.default_rng(C).integers(0, C, n_ref))
+    _against_the_plain_version(key, prod, n_ref, rows, depth, k,
+                               ((cls, C),))
 
 
 def test_pair_wrappers_check_their_inputs():
@@ -443,42 +552,52 @@ def test_pair_wrappers_never_take_the_plain_version_off_the_cpu(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("block", ["forest", "synthetic"])
 @pytest.mark.parametrize("dtype", [np.float64, np.float32],
                          ids=["f64", "f32"])
-def test_card_kernel_equals_the_plain_version(dtype):
+def test_card_kernel_equals_the_plain_version(dtype, block):
     """The kernel on the card against its plain version on the CPU, on one
-    block of a forest's sorted products: top-k (k = 10, 50) and the class
-    sums bit for bit (both add in tree order, then column order, unfused),
-    one launch each."""
+    block of sorted products: top-k and the class sums bit for bit (both
+    add in tree order, then column order, unfused), one launch each.  A
+    forest's block at k = 10, 50 and 5 classes; the synthetic block
+    (``_synthetic``, its long row 100,000 products) at k = 1, 64 and 40
+    classes, and unbucketed."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    fk, y = _rf("rf_leaf3_f32" if dtype == np.float32 else "rf_leaf3")
-    eng = fk.engine
-    index, gl, q, cum, blocks, depth = eng._collide_args()
-    from repro_torch.core.collide import _collide
-    rows = eng.n_ref
-    key, prod = _collide(index, gl, q, int(cum[rows]))
+    if block == "forest":
+        fk, y = _rf("rf_leaf3_f32" if dtype == np.float32 else "rf_leaf3")
+        eng = fk.engine
+        index, gl, q, cum, blocks, depth = eng._collide_args()
+        from repro_torch.core.collide import _collide
+        n_ref = rows = eng.n_ref
+        key, prod = _collide(index, gl, q, int(cum[rows]))
+        ks, classes = (10, 50), ((torch.as_tensor(y, dtype=torch.int64), 5),)
+    else:
+        key, prod, n_ref, rows, depth = _synthetic(100_000, dtype)
+        cls = torch.as_tensor(np.random.default_rng(40).integers(0, 40,
+                                                                 n_ref))
+        ks, classes = (1, 64), ((cls, 40), (None, 1))
     dev = torch.device("cuda", 0)
-    cls = torch.as_tensor(y, dtype=torch.int64)
-    for k in (10, 50):
+    for k in ks:
         want = (torch.zeros((rows, k), dtype=torch.int64),
                 torch.zeros((rows, k), dtype=torch.float64))
-        pair_ops.pair_topk(key, prod, eng.n_ref, rows, depth, *want)
+        pair_ops.pair_topk(key, prod, n_ref, rows, depth, *want)
         got = tuple(t.to(dev) for t in (torch.zeros_like(want[0]),
                                         torch.zeros_like(want[1])))
         n0 = pair_ops.pair_topk.launches
-        pair_ops.pair_topk(key.to(dev), prod.to(dev), eng.n_ref, rows,
+        pair_ops.pair_topk(key.to(dev), prod.to(dev), n_ref, rows,
                            depth, *got)
         torch.cuda.synchronize()
         assert pair_ops.pair_topk.launches == n0 + 1
         assert torch.equal(got[0].cpu(), want[0])
         assert torch.equal(got[1].cpu(), want[1])
-    want = torch.zeros(rows * 5, dtype=prod.dtype)
-    pair_ops.pair_sums(key, prod, eng.n_ref, rows, depth, cls, 5, want)
-    got = torch.full((rows * 5,), 7.0, dtype=prod.dtype, device=dev)
-    pair_ops.pair_sums(key.to(dev), prod.to(dev), eng.n_ref, rows, depth,
-                       cls.to(dev), 5, got)
-    assert torch.equal(got.cpu(), want)
+    for cls, C in classes:
+        want = torch.zeros(rows * C, dtype=prod.dtype)
+        pair_ops.pair_sums(key, prod, n_ref, rows, depth, cls, C, want)
+        got = torch.full((rows * C,), 7.0, dtype=prod.dtype, device=dev)
+        pair_ops.pair_sums(key.to(dev), prod.to(dev), n_ref, rows, depth,
+                           None if cls is None else cls.to(dev), C, got)
+        assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.cuda
@@ -513,4 +632,35 @@ def test_card_collision_path_against_k2_blocks(monkeypatch, dtype):
     again = (*eng.topk(k=10), eng.squared_row_sums(y, 5))
     assert len(eng._collide_blocks[1]) > 1
     for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_card_split_rows_keep_their_bits_and_are_counted(monkeypatch,
+                                                        fresh_global):
+    """On the card, with ``SPLIT`` at 0 (rows past 64 times the depth
+    split) and at a size no row reaches: the engine's collision path gives
+    the same bits (top-k and class sums), and
+    ``engine_collide_split_rows_total`` counts the rows past the threshold,
+    from ``cum``, once a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    monkeypatch.setattr(eng_mod, "COLLIDE_SHARE_MAX", SMALL_SHARE_MAX)
+    X, y = gaussian_classes(20_000, d=10, n_classes=5, sep=0.8, seed=3)
+    fk = ForestKernel(kernel_method="gap", n_trees=15, max_depth=32,
+                      min_samples_leaf=3, seed=0, device="cuda").fit(X, y)
+    eng = fk.engine
+    assert eng._collide_train(None)
+    answers = []
+    for split in (1 << 40, 0):
+        monkeypatch.setattr(pair_ops, "SPLIT", split)
+        before = fresh_global.snapshot().get(
+            "engine_collide_split_rows_total", {"series": {"": 0}})
+        answers.append((*eng.topk(k=10), eng.squared_row_sums(y, 5)))
+        after = fresh_global.snapshot()["engine_collide_split_rows_total"]
+        per = np.diff(eng._collide_cum)
+        want = int((per > pair_ops.split_products(eng._collide_depth)).sum())
+        assert after["series"][""] - before["series"][""] == 2 * want
+    assert want > 0
+    for a, b in zip(*answers):
         assert torch.equal(a, b)

@@ -23,10 +23,11 @@ from repro_torch.kernels.row_topk.ops import (MAX_K, MIN_LIST, lists_per_row,
                                               row_topk)
 from repro_torch.kernels.row_topk.ref import row_topk_ref
 
+from _warp_topk import INT_MAX, WarpTopK
+
 KS = [1, 5, 10, 26, 50, 64]
 DTYPES = [torch.float64, torch.float32]
 SLACK = 16                       # the engine's spare candidates
-INT_MAX = 2 ** 31 - 1
 
 
 def _rows(rng, n, k):
@@ -165,94 +166,6 @@ def test_lists_per_row(rows, n, want):
 
 # ---------------- a replay of the CUDA source's algorithm ----------------
 
-def _beats(a, ac, b, bc):
-    return (a > b) | ((a == b) & (ac < bc))
-
-
-class _WarpTopK:
-    """``WarpTopK<V, R>`` of row_topk.cu, lane by lane in numpy."""
-
-    def __init__(self, k, dtype):
-        self.R = 1 if k <= 32 else 2
-        self.k, self.dt = k, dtype
-        self.tv = np.full((self.R, 32), -np.inf, dtype)
-        self.tc = np.full((self.R, 32), INT_MAX, np.int64)
-        self.thr = (dtype(-np.inf), INT_MAX)
-        self.bv, self.bc = [], []
-
-    def passes(self, v, c):
-        return _beats(v, c, *self.thr)
-
-    def push(self, v, c, ok):
-        p = ok & self.passes(v, c)
-        if not p.any():
-            return
-        self.bv += list(v[p])           # in lane order, as ballot and popc
-        self.bc += list(c[p])
-        assert len(self.bv) < 64        # RT_BUF
-        if len(self.bv) >= 32:
-            self.merge(32)
-
-    def flush(self):
-        if self.bv:
-            self.merge(len(self.bv))
-
-    @staticmethod
-    def _exchange(v, c, stride, better):
-        lanes = np.arange(32)
-        ov, oc = v[lanes ^ stride], c[lanes ^ stride]
-        take = _beats(ov, oc, v, c) == better
-        return np.where(take, ov, v), np.where(take, oc, c)
-
-    def _bitonic_merge(self, v, c):
-        lanes = np.arange(32)
-        for stride in (16, 8, 4, 2, 1):
-            v, c = self._exchange(v, c, stride, (lanes & stride) == 0)
-        return v, c
-
-    def _sort32(self, v, c):
-        lanes = np.arange(32)
-        size = 2
-        while size <= 32:
-            stride = size >> 1
-            while stride:
-                v, c = self._exchange(
-                    v, c, stride, ((lanes & stride) == 0) == ((lanes & size)
-                                                               == 0))
-                stride >>= 1
-            size <<= 1
-        return v, c
-
-    def merge(self, n):
-        pv = np.full(32, -np.inf, self.dt)
-        pc = np.full(32, INT_MAX, np.int64)
-        pv[:n], pc[:n] = self.bv[:n], self.bc[:n]
-        self.bv, self.bc = self.bv[n:], self.bc[n:]
-        pv, pc = self._sort32(pv, pc)
-        rev = np.arange(32)[::-1]
-        ov, oc = pv[rev], pc[rev]
-        lo_v, lo_c = self.tv[-1], self.tc[-1]
-        take = _beats(ov, oc, lo_v, lo_c)
-        lo_v, lo_c = self._bitonic_merge(np.where(take, ov, lo_v),
-                                         np.where(take, oc, lo_c))
-        if self.R == 1:
-            self.tv[0], self.tc[0] = lo_v, lo_c
-        else:
-            ov, oc = lo_v[rev], lo_c[rev]
-            hi_v, hi_c = self.tv[0], self.tc[0]
-            take = _beats(ov, oc, hi_v, hi_c)
-            new_hi = (np.where(take, ov, hi_v), np.where(take, oc, hi_c))
-            new_lo = (np.where(take, hi_v, ov), np.where(take, hi_c, oc))
-            self.tv[0], self.tc[0] = self._bitonic_merge(*new_hi)
-            self.tv[1], self.tc[1] = self._bitonic_merge(*new_lo)
-        e = self.k - 1
-        self.thr = (self.tv[e // 32][e % 32], self.tc[e // 32][e % 32])
-
-    def entries(self):
-        return (self.tv.reshape(-1)[:self.k].copy(),
-                self.tc.reshape(-1)[:self.k].copy())
-
-
 def _replay_row(row, mis, k, lists, unroll=4):
     """Stage 1 over ``lists`` warps and stage 2 for one row whose first
     element lies ``mis`` elements past a 16-byte boundary."""
@@ -268,7 +181,7 @@ def _replay_row(row, mis, k, lists, unroll=4):
     for li in range(lists):
         v0 = min(nvec, li * per)
         v1 = min(nvec, v0 + per)
-        top = _WarpTopK(k, dt)
+        top = WarpTopK(k, dt)
         if li == 0:
             extra = head + (n - tail0)
             c = np.where(lanes < head, lanes, tail0 + lanes - head)
@@ -294,7 +207,7 @@ def _replay_row(row, mis, k, lists, unroll=4):
         cand_v.append(v)
         cand_c.append(c)
     cv, cc = np.concatenate(cand_v), np.concatenate(cand_c)
-    top = _WarpTopK(k, dt)
+    top = WarpTopK(k, dt)
     for j0 in range(0, cv.size, 32):
         j = j0 + lanes
         ok = j < cv.size
