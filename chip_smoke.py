@@ -2390,24 +2390,25 @@ def main() -> int:
     counted("build_kernel_cache", fk.build_kernel_cache)
     pred_tr = counted("predict_train", fk.predict)
     pred_te = counted("predict_oos", lambda: fk.predict(Xte))
-    kernel_rows = global_registry().counter(
-        "engine_topk_kernel_rows_total",
-        "of those, rows the row_topk kernel selected").labels()
+    dense_rows = global_registry().counter(
+        "engine_topk_rows_total",
+        "query rows top-k selected from dense blocks").labels()
     collide_rows = global_registry().counter(
         "engine_collide_rows_total",
         "query rows served on the collision path").labels()
-    kr0 = kernel_rows.value
+    kr0, rl0 = dense_rows.value, row_topk.launches
     top_idx, top_val = counted("topk_oos", lambda: fk.topk(k=K, X=Xq))
-    kr_oos = kernel_rows.value - kr0
+    kr_oos, rl_oos = dense_rows.value - kr0, row_topk.launches - rl0
     blk = counted("kernel_block", lambda: fk.kernel_block(rows))
     srs = counted("squared_row_sums_oos", lambda: fk.engine.squared_row_sums(
         ytr, n_classes=N_CLASSES, X=Xte))
     rsum = counted("row_sums", fk.row_sums)
     # all-pairs jobs over the training set: 50k x 50k through K2 row
     # blocks, or over leaf collisions where the engine's rule picks them
-    kr0, cr0 = kernel_rows.value, collide_rows.value
+    kr0, cr0, rl0 = dense_rows.value, collide_rows.value, row_topk.launches
     tr_idx, tr_val = counted("topk_train", lambda: fk.topk(k=K))
-    kr_train, cr_train = kernel_rows.value - kr0, collide_rows.value - cr0
+    kr_train, cr_train = dense_rows.value - kr0, collide_rows.value - cr0
+    rl_train = row_topk.launches - rl0
     collides = fk.engine.collision_mode()
     srs_tr = counted("squared_row_sums_train",
                      lambda: fk.engine.squared_row_sums(ytr, N_CLASSES))
@@ -2423,18 +2424,23 @@ def main() -> int:
         check((launches[name] > 0) == collides,
               f"{name} launched {launches[name]} times on the main path, "
               f"its train-side path {'collision' if collides else 'dense'}")
-    print(f"main path rows the row_topk kernel selected "
-          f"(engine_topk_kernel_rows_total): topk_oos {kr_oos:.0f}, "
-          f"topk_train {kr_train:.0f}; rows served on the collision path "
+    print(f"main path rows top-k selected from dense blocks "
+          f"(engine_topk_rows_total) and row_topk launches: topk_oos "
+          f"{kr_oos:.0f} ({rl_oos}), topk_train {kr_train:.0f} "
+          f"({rl_train}); rows served on the collision path "
           f"(engine_collide_rows_total): topk_train {cr_train:.0f}; "
           f"collision share {fk.engine.collision_share():.5f}, train-side "
           f"path {'collision' if collides else 'dense blocks'}", flush=True)
     want_kr, want_cr = (0, N_TRAIN) if collides else (N_TRAIN, 0)
     check(kr_oos == TOPK_ROWS and kr_train == want_kr
           and cr_train == want_cr,
-          f"row_topk selected {kr_oos}/{kr_train} rows and the collision "
+          f"dense blocks gave {kr_oos}/{kr_train} rows and the collision "
           f"path served {cr_train} of the main path's top-k, not "
           f"{TOPK_ROWS}/{want_kr} and {want_cr}")
+    check(rl_oos > 0 and (rl_train > 0) != collides,
+          f"row_topk launched {rl_oos}/{rl_train} times for the main "
+          f"path's top-k, its train-side path "
+          f"{'collision' if collides else 'dense'}")
     check(launches["moments"] == 0, "a classification fit launched K4")
     print(f"engine device memory: {fk.engine.memory_bytes()}", flush=True)
     levels = max(t.depth for t in fk.forest.trees_)

@@ -19,16 +19,15 @@ every tick pays only the query-side gather) and the query-side gather.
 Dense blocks, top-k and squared row sums run through the ``block_prox``
 kernel, which a CUDA engine whose leaves are small feeds its reference
 side grouped by leaf (``leaf_index``, built on the device at the first
-such call); with big leaves it runs the kernel's dense form.  A CUDA
-engine selects each block's top-k (k up to ``row_topk``'s ``MAX_K``) with
-the ``row_topk`` kernel in one read of the block; a wider k, and a CPU
-engine, take ``torch.topk`` and the tie rule (``_topk_rows``).
-Train-side (X=None) top-k and squared row sums of a CUDA engine whose
-training rows meet few reference columns (``collision_mode``) write no
-dense block: ``core/collide.py`` enumerates each row's leaf collisions
-from the leaf index and reduces them per (row, column).
-On a CPU engine the same calls take the kernels' plain versions, and large
-train-side top-k and squared row sums take the host CSR factors instead.
+such call); with big leaves it runs the kernel's dense form.  Each dense
+block's top-k is selected by ``row_topk`` (the kernel on a CUDA engine, its
+plain version on a CPU one; a k wider than the kernel's ``MAX_K`` takes the
+plain version on either).  One method, ``_train_path``, picks the path of
+every all-pairs call: dense blocks, the leaf collisions of
+``core/collide.py`` (train-side (X=None) calls of a CUDA engine whose
+training rows meet few reference columns, ``collision_mode``: no dense
+block is written), or the host CSR factors (large train-side calls of a
+CPU engine).  A CPU engine runs the kernels' plain versions.
 Results are tensors on the engine's device, in the engine's dtype (top-k
 values in float64, as the reference's scipy engine gives them).
 
@@ -36,17 +35,14 @@ With regions on (``obs.trace.set_regions``), ``topk`` and
 ``squared_row_sums`` mark their phases as ``torch.profiler`` ranges:
 ``engine.topk`` / ``engine.squared_row_sums`` around each call,
 ``engine.k2`` around each block kernel call, ``engine.select`` around each
-top-k selection, ``engine.spill_read`` around the tie rule's host read and
-``engine.spill_redo`` around its exact redo (neither on the kernel's path),
-``engine.class_ids`` around the class one-hot's build and
-``engine.class_sums`` around each block's squares and class sums; on the
-collision path ``engine.collide``, ``engine.collide_select`` and
-``engine.collide_sums`` (``core/collide.py``).  Each ``topk`` call on dense
-blocks adds its rows, the rows the tie rule redid and the rows the kernel
-selected to the process-wide counters ``engine_topk_rows_total``,
-``engine_topk_spill_rows_total`` and ``engine_topk_kernel_rows_total``;
-each call on the collision path adds its rows and the products it
-enumerated to ``engine_collide_rows_total`` and
+block's top-k selection, ``engine.class_ids`` around the class one-hot's
+build and ``engine.class_sums`` around each block's squares and class
+sums; on the collision path ``engine.collide``, ``engine.collide_select``
+and ``engine.collide_sums`` (``core/collide.py``).  Each ``topk`` call on
+dense blocks adds its rows to the process-wide counter
+``engine_topk_rows_total`` (and 0 to ``engine_topk_spill_rows_total``,
+which the benchmark still reads); each call on the collision path adds its
+rows and the products it enumerated to ``engine_collide_rows_total`` and
 ``engine_collisions_total`` and, on the card, the rows the pair kernels
 split over warps (more than ``split_products`` products, from the
 cumulative counts) to ``engine_collide_split_rows_total``.
@@ -91,6 +87,7 @@ from ..kernels.collide.ops import MAX_K as PAIR_TOPK_MAX_K
 from ..kernels.collide.ops import split_products
 from ..kernels.row_topk.ops import MAX_K as ROW_TOPK_MAX_K
 from ..kernels.row_topk.ops import row_topk
+from ..kernels.row_topk.ref import row_topk_ref
 from ..obs.metrics import global_registry
 from ..obs.trace import region
 from . import collide, torch_ops
@@ -179,11 +176,9 @@ class ProximityEngine:
     """Serves matvec / matmat / predict / topk / kernel_block for P = Q Wᵀ."""
 
     # On a CPU engine, above this reference-set size, train-side (X=None)
-    # topk and squared row sums take the host CSR path: those are all-pairs
-    # batch jobs where CSR restricts work to colliding pairs, while the
-    # plain dense block pays the full N·N_ref·T.  A CUDA engine keeps them
-    # on the card at every size: on the collision path in collision mode,
-    # else in ``block_prox`` row blocks.
+    # topk and squared row sums take the host CSR path (``_train_path``):
+    # those are all-pairs batch jobs where CSR restricts work to colliding
+    # pairs, while the plain dense block pays the full N·N_ref·T.
     _SPARSE_TRAIN_CUTOVER = 8192
 
     def __init__(self, ctx, assignment, forest=None, dtype=np.float64,
@@ -566,12 +561,27 @@ class ProximityEngine:
         """Whether train-side top-k and squared row sums enumerate leaf
         collisions rather than compare densely: when
         ``collision_share`` is at most ``COLLIDE_SHARE_MAX``.  A CUDA
-        engine takes the path for them (:meth:`_collide_train`)."""
+        engine takes the path for them (:meth:`_train_path`)."""
         return self.collision_share() <= COLLIDE_SHARE_MAX
 
-    def _collide_train(self, X) -> bool:
-        return (self.device.type == "cuda" and X is None
-                and self.collision_mode())
+    def _train_path(self, X, k: Optional[int] = None) -> str:
+        """The path of an all-pairs call on the query rows of ``X``
+        (``topk`` passes its ``k``, ``squared_row_sums`` none):
+        ``"csr"``, the host CSR factors, for a train-side (X=None) call of
+        a CPU engine above ``_SPARSE_TRAIN_CUTOVER`` rows; ``"collide"``,
+        the leaf collisions, for a train-side call of a CUDA engine in
+        ``collision_mode`` (a top-k only up to the pair kernel's
+        ``MAX_K``); else ``"dense"``, ``block_prox`` row blocks, every OOS
+        batch included."""
+        if X is not None:
+            return "dense"
+        if self.device.type == "cpu" and \
+                self.n_ref > self._SPARSE_TRAIN_CUTOVER:
+            return "csr"
+        if self.device.type == "cuda" and self.collision_mode() and \
+                (k is None or min(k, self.n_ref) <= PAIR_TOPK_MAX_K):
+            return "collide"
+        return "dense"
 
     def _collide_args(self) -> tuple:
         """The collision path's arguments for the training rows: the leaf
@@ -657,27 +667,23 @@ class ProximityEngine:
             i1 = min(i0 + step, qs.n)
             yield i0, i1, self._block(qs.gl[i0:i1], qs.q[i0:i1])
 
-    def _sparse_train(self, X) -> bool:
-        return (self.device.type == "cpu" and X is None
-                and self.n_ref > self._SPARSE_TRAIN_CUTOVER)
-
     def squared_row_sums(self, class_ids=None, n_classes: Optional[int] = None,
                          X=None, block: int = 4096) -> torch.Tensor:
         """Σ_j P(i,j)² per query row — the outlier-score primitive.
 
         With ``class_ids`` (N_ref,) the sum is bucketed by reference class:
         out[i, c] = Σ_{j: class_ids[j]=c} P(i,j)², shape (Nq, n_classes).
-        Dense device blocks, leaf collisions for train-side jobs on a CUDA
-        engine in ``collision_mode``, or host CSR row blocks for large
-        train-side jobs on a CPU engine — never a full dense P.
+        Dense device blocks, leaf collisions or host CSR row blocks, as
+        ``_train_path`` picks — never a full dense P.
         """
         with region("engine.squared_row_sums"):
             qs = self.query_state(X)
-            if self._sparse_train(X):
+            path = self._train_path(X)
+            if path == "csr":
                 class_ids, n_classes = _class_array(class_ids, n_classes)
                 return self._tensor(self._squared_row_sums_csr(
                     qs.Q, class_ids, n_classes, self._budget_block(block)))
-            if self._collide_train(X):
+            if path == "collide":
                 return self._collide_squared_row_sums(class_ids, n_classes)
             onehot = None
             if class_ids is not None:
@@ -788,73 +794,39 @@ class ProximityEngine:
              block: int = 4096) -> Tuple[torch.Tensor, torch.Tensor]:
         """Per-query top-k proximities, values descending and equal values
         by ascending column (so the card and the host pick the same
-        columns): dense device blocks reduced by the ``row_topk`` kernel
-        on a CUDA engine with ``k`` up to its ``MAX_K`` and by ``torch.topk``
-        and the tie rule otherwise, leaf collisions for train-side jobs on
-        a CUDA engine in ``collision_mode`` (``k`` up to the pair kernel's
-        ``MAX_K``), or host CSR for large
-        train-side jobs on a CPU engine.  Returns (indices int64, values
-        float64: a float32 engine's values widened, as the reference's
-        scipy engine returns them)."""
+        columns): dense device blocks selected by ``row_topk``, leaf
+        collisions or host CSR, as ``_train_path`` picks.  Returns
+        (indices int64, values float64: a float32 engine's values widened,
+        as the reference's scipy engine returns them)."""
         with region("engine.topk"):
             qs = self.query_state(X)
-            if self._sparse_train(X):
+            path = self._train_path(X, k)
+            if path == "csr":
                 idx, val = topk_neighbors(qs.Q, self.W, k,
                                           block=self._budget_block(block))
                 return (self._tensor(idx, torch.int64),
                         self._tensor(val, torch.float64))
-            if self._collide_train(X) and \
-                    min(k, self.n_ref) <= PAIR_TOPK_MAX_K:
+            if path == "collide":
                 return collide.topk(*self._collide_args(), k)
             kk = min(k, self.n_ref)
-            dev = self.device
-            kernel = dev.type == "cuda" and 0 < kk <= ROW_TOPK_MAX_K
-            idx = torch.zeros((qs.n, k), dtype=torch.int64, device=dev)
-            val = torch.zeros((qs.n, k), dtype=torch.float64, device=dev)
-            spill = None if kernel else torch.zeros(qs.n, dtype=torch.bool,
-                                                    device=dev)
+            idx = torch.zeros((qs.n, k), dtype=torch.int64, device=self.device)
+            val = torch.zeros((qs.n, k), dtype=torch.float64,
+                              device=self.device)
             for i0, i1, B in self._dense_blocks(qs, block):
                 with region("engine.select"):
-                    if kernel:
+                    if kk <= ROW_TOPK_MAX_K:
                         row_topk(B, kk, idx=idx[i0:i1, :kk],
                                  val=val[i0:i1, :kk])
-                    else:
-                        idx[i0:i1, :kk], val[i0:i1, :kk], spill[i0:i1] = \
-                            _topk_rows(B, kk)
-            n_spill = 0 if kernel else \
-                self._redo_spills(qs, spill, idx, val, kk, block)
+                    else:       # wider than the kernel: its plain version
+                        idx[i0:i1, :kk], val[i0:i1, :kk] = row_topk_ref(B, kk)
             reg = global_registry()
             reg.counter("engine_topk_rows_total",
                         "query rows top-k selected from dense blocks"
                         ).inc(qs.n)
+            # always 0: perfbench/metrics/topk_spill_pct.allpairs.py reads it
             reg.counter("engine_topk_spill_rows_total",
-                        "of those, rows whose ties at the k-th value "
-                        "spilled past the candidates (redone exactly)"
-                        ).inc(n_spill)
-            reg.counter("engine_topk_kernel_rows_total",
-                        "of those, rows the row_topk kernel selected"
-                        ).inc(qs.n if kernel else 0)
+                        "of those, rows a tie rule redid (none)").inc(0)
             return idx, val
-
-    def _redo_spills(self, qs: QueryState, spill: torch.Tensor,
-                     idx: torch.Tensor, val: torch.Tensor, kk: int,
-                     block: int) -> int:
-        """Redo exactly the rows whose ties at the k-th value spilled past
-        ``_topk_rows``' candidates, after one host read of ``spill``;
-        returns their count."""
-        with region("engine.spill_read"):  # one host read for the call
-            rows = spill.nonzero()[:, 0] if bool(spill.any()) else None
-        n_spill = 0 if rows is None else rows.numel()
-        if n_spill:
-            with region("engine.spill_redo"):
-                step = self._op_row_chunk(block)
-                for r0 in range(0, n_spill, step):
-                    r = rows[r0:r0 + step]
-                    B = self._block(qs.gl[r], qs.q[r])
-                    with region("engine.select"):
-                        ix, v = _topk_rows_exact(B, kk)
-                        idx[r, :kk], val[r, :kk] = ix, v.to(val.dtype)
-        return n_spill
 
     # ---------------- accounting ----------------
     def memory_bytes(self) -> dict:
@@ -901,49 +873,6 @@ def _class_array(class_ids, n_classes: Optional[int]):
     if n_classes is None:
         n_classes = int(class_ids.max()) + 1
     return class_ids, n_classes
-
-
-# Candidates a row's top-k takes beyond k, so that the columns tied at the
-# k-th value are among them (then ordered by column) without a host read.
-_TIE_SLACK = 16
-
-
-def _by_value_then_column(B: torch.Tensor, ix: torch.Tensor):
-    """(columns, values) of the columns ``ix`` of each row of ``B``, values
-    descending and equal values by ascending column."""
-    ix = ix.sort(dim=1).values
-    v, order = torch.sort(B.gather(1, ix), dim=1, descending=True,
-                          stable=True)
-    return ix.gather(1, order), v
-
-
-def _topk_rows(B: torch.Tensor, k: int):
-    """Each row's ``k`` largest entries of ``B`` as (columns, values,
-    spill), values descending and equal values by ascending column.
-
-    ``torch.topk`` may take any of the columns that tie at its last place,
-    so it takes ``_TIE_SLACK`` more candidates than asked: where the last
-    candidate's value is below the k-th, every column tied at the k-th
-    value is a candidate and the lowest of them are kept.  Elsewhere
-    ``spill`` is set, and :func:`_topk_rows_exact` must redo the row.
-    """
-    kc = min(k + _TIE_SLACK, B.shape[1])
-    v, ix = torch.topk(B, kc, dim=1)
-    spill = (v[:, -1] == v[:, k - 1]) & (kc < B.shape[1])
-    ix, v = _by_value_then_column(B, ix)
-    return ix[:, :k], v[:, :k], spill
-
-
-def _topk_rows_exact(B: torch.Tensor, k: int):
-    """:func:`_topk_rows`' order for rows whose ties at the k-th value
-    spill past the candidates: every column above that value, then the
-    lowest of its ties."""
-    thr = torch.topk(B, k, dim=1).values[:, -1:]
-    n_col = B.shape[1]
-    cols = torch.arange(n_col, device=B.device)
-    score = torch.where(B > thr, n_col,
-                        torch.where(B == thr, n_col - 1 - cols, -1))
-    return _by_value_then_column(B, torch.topk(score, k, dim=1).indices)
 
 
 def prediction_margin(scores) -> torch.Tensor:

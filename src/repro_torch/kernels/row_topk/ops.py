@@ -4,8 +4,8 @@ CPU tensors, and nothing else.
 Each row's ``k`` largest entries of a dense block as (columns int64,
 values float64), values descending and equal values by ascending column:
 the engine's order for ``topk`` (``core/engine.py``).  The kernel reads the
-block once and takes any ``k`` up to ``MAX_K``; the engine keeps its
-``torch.topk`` path for a wider ``k`` and on the CPU.
+block once and takes any ``k`` up to ``MAX_K``; the engine selects a wider
+``k`` with the plain version.
 """
 from __future__ import annotations
 

@@ -84,12 +84,13 @@ def probe(label: str) -> dict:
         def one_pass():
             eng.topk(k=10)
             eng.squared_row_sums(class_ids=y, n_classes=C)
-        eng._collide_train = lambda X: False
+        eng._train_path = lambda X, k=None: "dense"
         eng._train_state = QueryState(eng.gl[:r], eng.q[:r],
                                       eng.total_leaves)
         dense_s = _median_s(torch, one_pass) * n / r
         eng._train_state = full
-        eng._collide_train = lambda X: X is None
+        eng._train_path = lambda X, k=None: \
+            "collide" if X is None else "dense"
         collide_s = _median_s(torch, one_pass)
         return {"label": label, "rows": n, "trees": eng.gl.shape[1],
                 "share": share,

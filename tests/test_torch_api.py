@@ -19,6 +19,7 @@ from repro_torch.core.api import ForestKernel
 from repro_torch.core.convert import forest_kernel_from_arrays
 from repro_torch.forest import training
 from repro_torch.forest.ensemble import RandomForest
+from repro_torch.kernels.collide.ops import MAX_K as PAIR_TOPK_MAX_K
 
 ATOL = 1e-8
 
@@ -100,15 +101,32 @@ def test_large_train_side_jobs_take_the_host_csr_path(data, monkeypatch):
                                atol=ATOL)
 
 
-def test_card_engine_keeps_large_train_side_jobs_on_the_card(data):
-    """Only a CPU engine hands train-side jobs to the host CSR factors; a
-    CUDA engine runs them through the block kernel at every size."""
+@pytest.mark.parametrize("device,cutover,collides,side,k,want", [
+    ("cpu", 10, False, "train", None, "csr"),
+    ("cpu", 10, True, "train", 10, "csr"),
+    ("cpu", 10, False, "oos", 10, "dense"),
+    ("cpu", None, True, "train", 10, "dense"),
+    ("cuda", 10, False, "train", None, "dense"),
+    ("cuda", 10, False, "train", 10, "dense"),
+    ("cuda", 10, True, "train", None, "collide"),
+    ("cuda", 10, True, "train", PAIR_TOPK_MAX_K, "collide"),
+    ("cuda", 10, True, "train", PAIR_TOPK_MAX_K + 1, "dense"),
+    ("cuda", 10, True, "oos", 10, "dense"),
+])
+def test_card_engine_keeps_large_train_side_jobs_on_the_card(
+        data, device, cutover, collides, side, k, want):
+    """Only a CPU engine above the cutover hands train-side jobs to the
+    host CSR factors; a CUDA engine keeps them on the card at every size:
+    over leaf collisions in collision mode (a top-k up to the pair
+    kernel's MAX_K), else through the block kernel.  OOS batches take
+    dense blocks on every engine."""
     Xtr, ytr, _, _ = data
     eng = ForestKernel(device="cpu", n_trees=4, seed=2).fit(Xtr, ytr).engine
-    eng._SPARSE_TRAIN_CUTOVER = 10
-    assert eng._sparse_train(None) and not eng._sparse_train(Xtr)
-    eng.device = torch.device("cuda", 0)
-    assert not eng._sparse_train(None)
+    if cutover is not None:
+        eng._SPARSE_TRAIN_CUTOVER = cutover
+    eng.collision_mode = lambda: collides
+    eng.device = torch.device(device, 0) if device == "cuda" else eng.device
+    assert eng._train_path(None if side == "train" else Xtr, k) == want
 
 
 def test_cuda_requested_without_a_card_raises(data, monkeypatch):

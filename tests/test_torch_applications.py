@@ -39,6 +39,7 @@ from repro_torch.core import engine as p_engine
 from repro_torch.core import factorization as p_fact
 from repro_torch.core.convert import forest_kernel_from_arrays
 from repro_torch.core.weights import InstanceHardness
+from repro_torch.kernels.row_topk.ops import row_topk
 
 ATOL = 1e-8
 N_CLASSES = 3
@@ -217,24 +218,30 @@ def test_topk_ties_break_by_column(kernels, side):
 
 
 @pytest.mark.parametrize("k", [1, 5, 12, 40, 100])
-def test_topk_rule_on_ties_of_every_length(k):
-    """Rows with ties at the k-th place that stay within the candidates
-    and rows whose ties spill past them (then redone exactly) both give
-    the lexicographic (value descending, column ascending) order."""
+def test_topk_rule_on_ties_of_every_length(kernels, k):
+    """Rows whose ties at the k-th place reach a few columns past it and
+    rows where most columns tie there give the lexicographic (value
+    descending, column ascending) order, through ``row_topk`` and through
+    a CPU engine's ``topk`` selecting the block in row blocks (k = 100
+    past ``row_topk``'s MAX_K: the plain version, as on the card)."""
     rng = np.random.default_rng(k)
     P = rng.integers(0, 4, (60, 100)) * (rng.random((60, 100)) < 0.5) * 1.0
     want = np.lexsort((np.broadcast_to(np.arange(100), P.shape), -P),
                       axis=1)[:, :k]
     B = torch.as_tensor(P)
-    ix, v, spill = p_engine._topk_rows(B, k)
-    r = spill.nonzero()[:, 0]
-    if k in (12, 40):          # both paths, side by side in one call
-        assert 0 < r.numel() < 60
-    ix[r], v[r] = p_engine._topk_rows_exact(B[r], k)
-    np.testing.assert_array_equal(_np(ix), want)
-    np.testing.assert_array_equal(_np(v), np.take_along_axis(P, want, 1))
-    np.testing.assert_array_equal(_np(p_engine._topk_rows_exact(B, k)[0]),
-                                  want)
+    eng = kernels["gap"][1].engine
+    assert eng.n_ref >= P.shape[1]
+    eng.query_state = lambda X=None: p_engine.QueryState(
+        eng.gl[:60], eng.q[:60], eng.total_leaves)
+    eng._dense_blocks = lambda qs, block: (
+        (i0, min(i0 + 32, 60), B[i0:i0 + 32]) for i0 in range(0, 60, 32))
+    try:
+        got = (row_topk(B, k), eng.topk(k))
+    finally:
+        del eng.query_state, eng._dense_blocks
+    for ix, v in got:
+        np.testing.assert_array_equal(_np(ix), want)
+        np.testing.assert_array_equal(_np(v), np.take_along_axis(P, want, 1))
 
 
 def test_nearest_prototype_classifier_matches_reference(kernels):

@@ -13,7 +13,7 @@ kernel's warp walk (``kernels/collide/csrc/collide.cu``) replayed in numpy
 against its plain version, on forests' products and on products built to
 break it.  A CPU engine keeps its own paths, so the
 tests send train-side calls down the collision path by patching
-``_collide_train``; the marked tests hold the kernel on the card to its
+``_train_path``; the marked tests hold the kernel on the card to its
 plain version bit for bit and the card's collision path to its K2 blocks.
 """
 import importlib.util
@@ -98,8 +98,10 @@ def collide_on_cpu(monkeypatch):
     """Train-side calls of an engine in collision mode take the path, with
     the threshold at ``SMALL_SHARE_MAX``."""
     monkeypatch.setattr(eng_mod, "COLLIDE_SHARE_MAX", SMALL_SHARE_MAX)
-    monkeypatch.setattr(ProximityEngine, "_collide_train",
-                        lambda self, X: X is None and self.collision_mode())
+    def train_path(self, X, k=None):
+        return "collide" if X is None and self.collision_mode() and (
+            k is None or min(k, self.n_ref) <= pair_ops.MAX_K) else "dense"
+    monkeypatch.setattr(ProximityEngine, "_train_path", train_path)
 
 
 @pytest.fixture
@@ -145,7 +147,7 @@ def _row_rel(a, b):
 def test_collision_path_equals_dense_blocks(forests, name):
     fk, y = forests[name]
     eng = fk.engine
-    assert not eng._collide_train(None)      # a CPU engine keeps its paths
+    assert eng._train_path(None) == "dense"  # a CPU engine keeps its paths
     (idx, val, sq, s), (idx0, val0, sq0, s0) = _gap(eng, y)
     assert idx.dtype == torch.int64 and val.dtype == torch.float64
     assert sq.dtype == s.dtype == eng._torch_dtype
@@ -616,7 +618,7 @@ def test_card_collision_path_against_k2_blocks(monkeypatch, dtype):
                       min_samples_leaf=3, seed=0, dtype=dtype,
                       device="cuda").fit(X, y)
     eng = fk.engine
-    assert eng.collision_mode() and eng._collide_train(None)
+    assert eng.collision_mode() and eng._train_path(None) == "collide"
     tol = TOL if dtype == np.float64 else TOL_F32
     got = (*eng.topk(k=10), eng.squared_row_sums(y, 5))
     B = eng.kernel_block()
@@ -650,7 +652,7 @@ def test_card_split_rows_keep_their_bits_and_are_counted(monkeypatch,
     fk = ForestKernel(kernel_method="gap", n_trees=15, max_depth=32,
                       min_samples_leaf=3, seed=0, device="cuda").fit(X, y)
     eng = fk.engine
-    assert eng._collide_train(None)
+    assert eng._train_path(None) == "collide"
     answers = []
     for split in (1 << 40, 0):
         monkeypatch.setattr(pair_ops, "SPLIT", split)

@@ -4,13 +4,14 @@ With regions off, ``region`` hands out the shared no-op and a
 ``torch.profiler`` trace of ``topk`` and ``squared_row_sums`` holds no
 ``repro:`` range; with them on it holds the engine's spans, nested as the
 engine's docstring names them, and the answers keep their bits.  The
-top-k counters count exactly the rows ``_topk_rows`` flags.  The tests
-marked ``cuda`` (skipped without a card) hold K2's launch counts by form
-to the form the engine picks, and the card engine's top-k through the
-``row_topk`` kernel to its ``torch.topk`` path: the same answers, the
-kernel's counts, and no tie-rule host read.  They keep the card engine's
-train-side calls on dense blocks (``dense_blocks``); the collision path's
-spans and counters are ``tests/test_torch_collide.py``'s.
+top-k counters count each call's rows once, and the spill counter, which
+the benchmark reads, stays 0.  The tests marked ``cuda`` (skipped without
+a card) hold K2's launch counts by form to the form the engine picks, and
+the card engine's top-k through the ``row_topk`` kernel to the plain
+version on its block: the same answers, one launch a block, and no span
+but the top-k's own.  They keep the card engine's train-side calls on
+dense blocks (``dense_blocks``); the collision path's spans and counters
+are ``tests/test_torch_collide.py``'s.
 """
 import numpy as np
 import pytest
@@ -19,10 +20,10 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.core import engine as eng_mod
 from repro_torch.core.api import ForestKernel
-from repro_torch.core.engine import _topk_rows, _topk_rows_exact
 from repro_torch.data.synthetic import friedman1, gaussian_classes
 from repro_torch.kernels.block_prox.ops import block_prox
 from repro_torch.kernels.row_topk.ops import row_topk
+from repro_torch.kernels.row_topk.ref import row_topk_ref
 from repro_torch.obs import (NULL_REGION, MetricsRegistry, global_registry,
                              region, set_regions)
 from repro_torch.obs.metrics import set_global_registry
@@ -32,11 +33,8 @@ K = 10
 PARENTS = {
     "engine.topk": {None},
     "engine.squared_row_sums": {None},
-    "engine.k2": {"engine.topk", "engine.squared_row_sums",
-                  "engine.spill_redo"},
-    "engine.select": {"engine.topk", "engine.spill_redo"},
-    "engine.spill_read": {"engine.topk"},
-    "engine.spill_redo": {"engine.topk"},
+    "engine.k2": {"engine.topk", "engine.squared_row_sums"},
+    "engine.select": {"engine.topk"},
     "engine.class_ids": {"engine.squared_row_sums"},
     "engine.class_sums": {"engine.squared_row_sums"},
 }
@@ -49,8 +47,7 @@ def data():
 
 @pytest.fixture(scope="module")
 def tied(data):
-    """Two stumps: most of a row's columns tie at its k-th value, past the
-    16 spare candidates."""
+    """Two stumps: most of a row's columns tie at its k-th value."""
     X, y = data
     return ForestKernel(kernel_method="gap", n_trees=2, max_depth=1, seed=0,
                         device="cpu").fit(X, y)
@@ -58,8 +55,8 @@ def tied(data):
 
 @pytest.fixture(scope="module")
 def untied(data):
-    """Forty KeRF trees of depth 4: every row's candidates end below its
-    k-th value."""
+    """Forty KeRF trees of depth 4: few columns tie at a row's k-th
+    value."""
     X, y = data
     return ForestKernel(kernel_method="kerf", n_trees=40, max_depth=4,
                         seed=0, device="cpu").fit(X, y)
@@ -139,50 +136,49 @@ def test_ranges_nested_and_answers_bit_identical(regions_off, data, kernel,
     for a, b in zip(off, on):
         assert torch.equal(a, b)
     names = {r[0] for r in ranges}
-    want = set(PARENTS) - ({"engine.spill_redo"} if kernel == "untied"
-                           else set())
-    assert names == want
+    assert names == set(PARENTS)
     for r in ranges:
         assert _parent(r, ranges) in PARENTS[r[0]], r[0]
-    # once a call: the outer spans, the host read, the one-hot, the redo
-    for name in want - {"engine.k2", "engine.select", "engine.class_sums"}:
+    # once a call: the outer spans and the one-hot
+    for name in set(PARENTS) - {"engine.k2", "engine.select",
+                                "engine.class_sums"}:
         assert sum(r[0] == name for r in ranges) == 1, name
-    if kernel == "tied":     # the redo holds its own K2 call and selection
-        redo = next(r for r in ranges if r[0] == "engine.spill_redo")
-        inner = {r[0] for r in ranges if _parent(r, ranges) ==
-                 "engine.spill_redo" and redo[1] <= r[1] <= redo[2]}
-        assert inner == {"engine.k2", "engine.select"}
+    # a selection a K2 block
+    assert sum(r[0] == "engine.select" for r in ranges) == \
+        sum(_parent(r, ranges) == "engine.topk" for r in ranges
+            if r[0] == "engine.k2")
 
 
-@pytest.mark.parametrize("kernel,spills", [("tied", True),
-                                           ("untied", False)])
+@pytest.mark.parametrize("kernel", ["tied", "untied"])
 def test_spill_counter_counts_the_flagged_rows(fresh_global, regions_off,
-                                               kernel, spills, request):
+                                               kernel, request):
+    """Every row counted, ties at the k-th value or none, and the spill
+    counter, which the benchmark reads, present and 0."""
     fk = request.getfixturevalue(kernel)
-    _, _, flag = _topk_rows(fk.engine.kernel_block(), K)
-    n_flag = int(flag.sum())
-    assert (n_flag > 0) == spills
     fk.engine.topk(k=K)
     fk.engine.topk(k=K)
     snap = fresh_global.snapshot()
     n = fk.engine.n_ref
     assert snap["engine_topk_rows_total"]["series"][""] == 2 * n
-    assert snap["engine_topk_spill_rows_total"]["series"][""] == 2 * n_flag
+    assert snap["engine_topk_spill_rows_total"]["series"][""] == 0
 
 
 def test_counters_count_once_per_call_not_per_block(fresh_global,
                                                     regions_off, tied):
     """Blocks of 32 rows: ten blocks, one increment of each counter."""
-    _, _, flag = _topk_rows(tied.engine.kernel_block(), K)
-    fam = fresh_global.counter("engine_topk_spill_rows_total")
-    seen = []
-    inc = fam.inc
-    fam.inc = lambda n=1.0: (seen.append(n), inc(n))
+    names = ("engine_topk_rows_total", "engine_topk_spill_rows_total")
+    seen = {name: [] for name in names}
+    for name in names:
+        fam = fresh_global.counter(name)
+        fam.inc = lambda n=1.0, inc=fam.inc, name=name: (
+            seen[name].append(n), inc(n))
     try:
         tied.engine.topk(k=K, block=32)
     finally:
-        del fam.inc
-    assert seen == [int(flag.sum())]
+        for name in names:
+            del fresh_global.counter(name).inc
+    assert seen == {"engine_topk_rows_total": [tied.engine.n_ref],
+                    "engine_topk_spill_rows_total": [0]}
 
 
 def test_topk_on_host_csr_counts_nothing(fresh_global, regions_off, tied,
@@ -266,34 +262,21 @@ def test_card_answers_bit_identical_with_regions_on(dev, dense_blocks,
             "repro:engine.class_sums"} <= names
 
 
-def _torch_topk_path(eng, k):
-    """The engine's answer through ``_topk_rows`` and, for the rows it
-    flags, ``_topk_rows_exact``, on its whole dense block."""
-    B = eng.kernel_block()
-    kk = min(k, eng.n_ref)
-    idx, val, spill = _topk_rows(B, kk)
-    idx, val = idx.clone(), val.to(torch.float64)
-    rows = spill.nonzero()[:, 0]
-    if rows.numel():
-        ix, v = _topk_rows_exact(B[rows], kk)
-        idx[rows], val[rows] = ix, v.to(torch.float64)
-    return idx, val
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.float64, np.float32],
                          ids=["f64", "f32"])
 @pytest.mark.parametrize("kind", ["leaf", "dense"])
-def test_card_topk_kernel_equals_torch_topk_path(dev, dense_blocks,
-                                                 regions_off, fresh_global,
-                                                 kind, dtype):
-    """k = 10 and 50, in one block and in 64-row blocks: the kernel's
-    answer is the torch.topk path's, one launch a block, every row counted
-    as the kernel's and none as spilled."""
+def test_card_topk_kernel_equals_plain_version(dev, dense_blocks,
+                                               regions_off, fresh_global,
+                                               kind, dtype):
+    """k = 10 and 50, in one block and in 64-row blocks: the engine's
+    answer is the plain version's on its whole block, one kernel launch a
+    block, every row counted and none as spilled."""
     eng, _ = _card_engine(kind, dtype)
     n = eng.n_ref
+    B = eng.kernel_block()
     for k in (10, 50):
-        want = _torch_topk_path(eng, k)
+        want = row_topk_ref(B, k)
         for block in (4096, 64):
             launches = row_topk.launches
             got = eng.topk(k=k, block=block)
@@ -304,24 +287,46 @@ def test_card_topk_kernel_equals_torch_topk_path(dev, dense_blocks,
             assert row_topk.launches - launches == -(-n // step)
     snap = fresh_global.snapshot()
     assert snap["engine_topk_rows_total"]["series"][""] == 4 * n
-    assert snap["engine_topk_kernel_rows_total"]["series"][""] == 4 * n
     assert snap["engine_topk_spill_rows_total"]["series"][""] == 0
+
+
+@pytest.mark.cuda
+def test_card_topk_past_the_kernel_takes_the_plain_version(dev,
+                                                           dense_blocks,
+                                                           regions_off):
+    """k = 100, past ``row_topk``'s MAX_K, on a CUDA engine: no kernel
+    launch, and the lexicographic (value descending, column ascending)
+    order of the engine's block."""
+    eng, _ = _card_engine("dense")
+    P = eng.kernel_block().cpu().numpy()
+    want = np.lexsort((np.broadcast_to(np.arange(P.shape[1]), P.shape), -P),
+                      axis=1)[:, :100]
+    launches = row_topk.launches
+    idx, val = eng.topk(k=100, block=64)
+    torch.cuda.synchronize()
+    assert row_topk.launches == launches
+    np.testing.assert_array_equal(idx.cpu().numpy(), want)
+    np.testing.assert_array_equal(val.cpu().numpy(),
+                                  np.take_along_axis(P, want, 1))
 
 
 @pytest.mark.cuda
 def test_card_topk_kernel_path_reads_nothing_back(dev, dense_blocks,
                                                   regions_off):
-    """On the kernel's path a top-k call has no tie-rule host read or
-    redo: no ``engine.spill_read`` or ``engine.spill_redo`` range, and
-    ``engine.select`` still around each block's selection."""
+    """A top-k call on the kernel's path is the plain version's answer and
+    holds only its own spans: ``engine.topk`` around ``engine.k2`` and
+    ``engine.select`` a block, nothing between the selections."""
     eng, _ = _card_engine("dense")
+    want = row_topk_ref(eng.kernel_block(), K)
     set_regions(True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng.topk(k=K)
+        got = eng.topk(k=K)
         torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     names = [e.name() for e in prof.profiler.kineto_results.events()
              if e.name().startswith("repro:")]
-    assert "repro:engine.select" in names
-    assert "repro:engine.spill_read" not in names
-    assert "repro:engine.spill_redo" not in names
+    assert set(names) == {"repro:engine.topk", "repro:engine.k2",
+                          "repro:engine.select"}
+    assert names.count("repro:engine.k2") == \
+        names.count("repro:engine.select")
