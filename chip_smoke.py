@@ -224,7 +224,7 @@ OOC_RTOL = 1e-10         # outlier sums and scores against the host
 # squares added in another order (one pair dropped moves an entry ~1e-6)
 PAIR_SUMS_RTOL = 1e-12
 # the per-path launch counts, in the order of ``wrappers``
-LAUNCHES = "K1/K2/K3/K4/top-k/pair-top-k/pair-sums"
+LAUNCHES = "K1/K2/K3/K4/top-k/pair-top-k/pair-sums/enumerate"
 ATOL_PRODUCT = 1e-15     # budgeted products (index_add_ atomics) vs phase 1
 # phase 12: float32 factors; the CPU checks' block rows (tolerance and
 # top-k tie rule: tests/_f32_contract.py)
@@ -474,20 +474,23 @@ def budget_check(torch, dev, fk, Xtr, ytr, Xq, Xte, rows):
 
 
 def pair_kernel_check(torch, eng, y, n_classes, k):
-    """The collision-pair kernels (``kernels/collide``) against their plain
-    versions on the card, on the products of three of the engine's own
-    train-side row blocks (the first, the one holding the most products and
-    the last): ``pair_topk`` bit for bit at ``k`` and at the kernel's
-    widest top-k, ``pair_sums`` class-bucketed and unbucketed within
-    ``PAIR_SUMS_RTOL`` of each entry; both timed on each of the three
-    (``times``: block, its longest row's products, top-k ms, sums ms), and
-    beside their plain versions on the largest block.  Leaves every launch
-    count as it found it."""
-    from repro_torch.core import collide
-    from repro_torch.kernels.collide.ops import MAX_K, pair_sums, pair_topk
-    from repro_torch.kernels.collide.ref import pair_sums_ref, pair_topk_ref
-    counts = (pair_topk.launches, pair_sums.launches)
-    index, gl, q, cum, blocks, depth = eng._collide_args()
+    """The collision kernels (``kernels/collide``) against their plain
+    versions on the card, on three of the engine's own train-side row
+    blocks (the first, the one holding the most products and the last):
+    ``collide_enumerate`` bit for bit against the plain enumeration and
+    sort run on the card, then, on its products, ``pair_topk`` bit for bit
+    at ``k`` and at the kernel's widest top-k, ``pair_sums`` class-bucketed
+    and unbucketed within ``PAIR_SUMS_RTOL`` of each entry; the three timed
+    on each block (``times``: block, its longest row's products,
+    enumeration ms, top-k ms, sums ms), and beside their plain versions on
+    the largest block.  Leaves every launch count as it found it."""
+    from repro_torch.kernels.collide.ops import (MAX_K, collide_enumerate,
+                                                 pair_sums, pair_topk)
+    from repro_torch.kernels.collide.ref import (collide_enumerate_ref,
+                                                 pair_sums_ref, pair_topk_ref)
+    counts = (collide_enumerate.launches, pair_topk.launches,
+              pair_sums.launches)
+    index, gl, q, cum, row_start, blocks, depth = eng._collide_args()
     dev, n_ref = gl.device, index.n_ref
     class_of = torch.as_tensor(np.asarray(y), dtype=torch.int64, device=dev)
     sizes = [int(cum[i1] - cum[i0]) for i0, i1 in blocks]
@@ -497,7 +500,13 @@ def pair_kernel_check(torch, eng, y, n_classes, k):
     for b in picked:
         i0, i1 = blocks[b]
         rows, n_prod = i1 - i0, sizes[b]
-        key, prod = collide._collide(index, gl[i0:i1], q[i0:i1], n_prod)
+        block = (index, gl[i0:i1], q[i0:i1])
+        key, prod = collide_enumerate(*block, row_start[i0:i1 + 1], n_prod)
+        want = collide_enumerate_ref(*block, n_prod)
+        check(torch.equal(key, want[0]) and torch.equal(prod, want[1]),
+              f"collide_enumerate on row block {b} ({rows} rows, {n_prod} "
+              "products) is not its plain version")
+        del want
         pairs = int((key[1:] != key[:-1]).sum()) + (n_prod > 0)
         held = torch.bincount(torch.unique_consecutive(key) // n_ref,
                               minlength=rows)
@@ -532,6 +541,8 @@ def pair_kernel_check(torch, eng, y, n_classes, k):
         sq = torch.empty(rows * n_classes, dtype=prod.dtype, device=dev)
         out["times"].append((
             b, int(np.diff(cum[i0:i1 + 1]).max()),
+            cuda_ms(torch, lambda: collide_enumerate(
+                *block, row_start[i0:i1 + 1], n_prod), 5),
             cuda_ms(torch, lambda: pair_topk(key, prod, n_ref, rows, depth,
                                              idx, val), 5),
             cuda_ms(torch, lambda: pair_sums(key, prod, n_ref, rows, depth,
@@ -539,19 +550,28 @@ def pair_kernel_check(torch, eng, y, n_classes, k):
         if b == int(np.argmax(sizes)):
             read = n_prod * (key.element_size() + prod.element_size())
             out.update({
-                "topk_ms": out["times"][-1][2],
+                "enum_ms": out["times"][-1][2],
+                "enum_plain_ms": cuda_ms(torch, lambda: collide_enumerate_ref(
+                    *block, n_prod), 2),
+                # one read of each product's column and weight, one write
+                # of its key and value
+                "enum_bound_ms": n_prod * (4 + 2 * prod.element_size()
+                                           + key.element_size())
+                / HBM_BYTES_S * 1e3,
+                "topk_ms": out["times"][-1][3],
                 "topk_plain_ms": cuda_ms(torch, lambda: pair_topk_ref(
                     key, prod, n_ref, rows, depth, idx, val), 2),
                 "topk_bound_ms": (read + rows * kk * 16) / HBM_BYTES_S
                 * 1e3,
-                "sums_ms": out["times"][-1][3],
+                "sums_ms": out["times"][-1][4],
                 "sums_plain_ms": cuda_ms(torch, lambda: pair_sums_ref(
                     key, prod, n_ref, rows, depth, class_of, n_classes,
                     sq), 2),
                 "sums_bound_ms": (read + n_ref * 8 + sq.numel()
                                   * sq.element_size()) / HBM_BYTES_S * 1e3})
         del key, prod
-    pair_topk.launches, pair_sums.launches = counts
+    collide_enumerate.launches, pair_topk.launches, pair_sums.launches = \
+        counts
     return out
 
 
@@ -884,26 +904,31 @@ def phase9(torch, dev, n_rows, wrappers):
               f"{name} was not launched on the out-of-core path")
     # the outlier scores' class sums and the prototypes' top-k
     path9 = "the collision path" if collides9 else "dense blocks"
-    for name in ("pair_sums", "pair_topk"):
+    for name in ("pair_sums", "pair_topk", "collide_enumerate"):
         check((ooc_launches[name] > 0) == collides9,
               f"{name} launched {ooc_launches[name]} times on the "
               f"out-of-core path, on {path9}")
     if pairs:
-        print("phase 9 check (d): the collision-pair kernels equal their "
+        print("phase 9 check (d): the collision kernels equal their "
               "plain versions on the card on row blocks (block, rows, "
               "products, pairs, rows holding fewer than k pairs) "
               + ", ".join(str(c) for c in pairs["checked"])
-              + f" of {pairs['blocks']}: pair_topk bit for bit at k = {K} "
+              + f" of {pairs['blocks']}: collide_enumerate bit for bit, "
+              f"pair_topk bit for bit at k = {K} "
               f"and 64, pair_sums rel err {pairs['sums_rel_err']:.1e} "
-              f"(abs {pairs['sums_abs_err']:.1e}); largest block ms "
-              f"kernel / plain / one read: top-k {pairs['topk_ms']:.4f} / "
+              f"(abs {pairs['sums_abs_err']:.1e}); collide_enumerate "
+              f"launches on the out-of-core path "
+              f"{ooc_launches['collide_enumerate']}; largest block ms "
+              f"kernel / plain / one read: enumeration "
+              f"{pairs['enum_ms']:.4f} / {pairs['enum_plain_ms']:.3f} / "
+              f"{pairs['enum_bound_ms']:.4f}, top-k {pairs['topk_ms']:.4f} / "
               f"{pairs['topk_plain_ms']:.3f} / "
               f"{pairs['topk_bound_ms']:.4f}, sums {pairs['sums_ms']:.4f} "
               f"/ {pairs['sums_plain_ms']:.3f} / "
               f"{pairs['sums_bound_ms']:.4f}; a call on each (block, "
-              "longest row's products, top-k ms, sums ms) "
-              + ", ".join(f"({b}, {n}, {t:.4f}, {u:.4f})"
-                          for b, n, t, u in pairs["times"]), flush=True)
+              "longest row's products, enumeration ms, top-k ms, sums ms) "
+              + ", ".join(f"({b}, {n}, {e:.4f}, {t:.4f}, {u:.4f})"
+                          for b, n, e, t, u in pairs["times"]), flush=True)
     return ooc_launches, pairs
 
 
@@ -1900,7 +1925,8 @@ def phase12(torch, dev, fk, Xtr, ytr, Xte, snap_bytes64):
     from repro_torch.core.factorization import factor_digest
     from repro_torch.kernels.block_prox.ops import block_prox
     from repro_torch.kernels.block_prox.ref import block_prox_ref
-    from repro_torch.kernels.collide.ops import pair_sums, pair_topk
+    from repro_torch.kernels.collide.ops import (collide_enumerate,
+                                                 pair_sums, pair_topk)
     from repro_torch.kernels.histogram.ops import histogram, moments
     from repro_torch.kernels.leaf_route.ops import route
     from repro_torch.kernels.row_topk.ops import row_topk
@@ -1929,7 +1955,8 @@ def phase12(torch, dev, fk, Xtr, ytr, Xte, snap_bytes64):
     counters = {"leaf_route": route, "block_prox": block_prox,
                 "histogram": histogram, "moments": moments,
                 "row_topk": row_topk, "pair_topk": pair_topk,
-                "pair_sums": pair_sums}
+                "pair_sums": pair_sums,
+                "collide_enumerate": collide_enumerate}
     for f in counters.values():
         f.launches = 0
     block_prox.launches_f32 = 0
@@ -2311,13 +2338,15 @@ def main() -> int:
                                                    moments_ref)
     from repro_torch.kernels.leaf_route.ops import route, route_tables
     from repro_torch.kernels.leaf_route.ref import route_ref
-    from repro_torch.kernels.collide.ops import pair_sums, pair_topk
+    from repro_torch.kernels.collide.ops import (collide_enumerate,
+                                                 pair_sums, pair_topk)
     from repro_torch.kernels.row_topk.ops import row_topk
     from repro_torch.obs.metrics import global_registry
     wrappers = {"leaf_route": route, "block_prox": block_prox,
                 "histogram": histogram, "moments": moments,
                 "row_topk": row_topk, "pair_topk": pair_topk,
-                "pair_sums": pair_sums}
+                "pair_sums": pair_sums,
+                "collide_enumerate": collide_enumerate}
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2420,7 +2449,7 @@ def main() -> int:
         check(launches[name] > 0, f"{name} was not launched on the main path")
     # the train-side top-k and class sums: on dense blocks, or through the
     # collision-pair kernels where the engine's rule picks that path
-    for name in ("pair_topk", "pair_sums"):
+    for name in ("pair_topk", "pair_sums", "collide_enumerate"):
         check((launches[name] > 0) == collides,
               f"{name} launched {launches[name]} times on the main path, "
               f"its train-side path {'collision' if collides else 'dense'}")
@@ -2600,7 +2629,8 @@ def main() -> int:
         check(gbt_launches[name] > 0, f"{name} was not launched on the GBT "
               "path")
     check(gbt_launches["histogram"] == 0, "a regression fit launched K3")
-    check(gbt_launches["pair_topk"] == gbt_launches["pair_sums"] == 0,
+    check(gbt_launches["pair_topk"] == gbt_launches["pair_sums"]
+          == gbt_launches["collide_enumerate"] == 0,
           "the GBT path left dense blocks for the collision path")
     ge = gk.engine
     Y2 = np.stack([yg_tr, np.ones(N_GBT)], axis=1)
@@ -3743,11 +3773,12 @@ def main() -> int:
          "bound_ms": rt_main["bound_ms"], "bound_by": "bytes",
          "library_ms": rt_main["library_ms"]},
     ]
-    # the collision-pair kernels (phase 9 (d), on its largest row block;
-    # none: the reference's train-side ops write dense blocks)
-    for name, err in (("pair_topk", 0.0),       # bit for bit
-                      ("pair_sums", pairs.get("sums_abs_err"))):
-        op = name.split("_")[1]
+    # the collision kernels (phase 9 (d), on its largest row block; none:
+    # the reference's train-side ops write dense blocks)
+    for name, op, err in (
+            ("collide_enumerate", "enum", 0.0),  # bit for bit
+            ("pair_topk", "topk", 0.0),
+            ("pair_sums", "sums", pairs.get("sums_abs_err"))):
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/collide/csrc/collide.cu",

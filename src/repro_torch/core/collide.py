@@ -6,9 +6,12 @@ leaves: in each tree where its query weight is nonzero, the members of its
 leaf.  For a block of query rows every such product ``q_t(i)·w_t(j)`` is
 enumerated from the engine's leaf index
 (``kernels/block_prox/ops.py::LeafIndex``: each leaf's nonzero-weight
-members, columns ascending) and sorted by the key ``row · n_ref + column``
-with a stable sort, so each pair's products stay in ascending tree order
-(plain torch ops, on any device).  The collision-pair kernel
+members, columns ascending) in the order of the key ``row · n_ref +
+column``, each pair's products in ascending tree order
+(``kernels/collide/ops.py::collide_enumerate``: on the card a kernel that
+writes each product at its rank in the merge of its row's leaf lists, from
+the rows' cumulative products on the device; on the CPU its plain version,
+a row-major enumeration and a stable sort).  The collision-pair kernel
 (``kernels/collide``, its plain version on the CPU) then adds each pair's
 products in that order from 0.0, unfused, so P(i, j) is the same sum
 whatever else the block holds, and reduces the pairs:
@@ -26,13 +29,13 @@ add into an fma, so on the card they differ in the last bits where a pair
 collides in more than one tree.  A row's answer depends on its own
 products only, so neither the block height nor a memory budget changes a
 bit.  Blocks are cut by the products they hold (:func:`row_blocks`, from
-the rows' cumulative product counts the engine keeps on the host), so
-their transients stay within a cap, and the host reads nothing back in
-the block loop.
+the rows' cumulative product counts the engine keeps on the host, and a
+copy of them on the device), so their transients stay within a cap, and
+the host reads nothing back and copies nothing over in the block loop.
 
 With regions on (``obs.trace.set_regions``), ``engine.collide`` marks each
-block's enumeration and sort, ``engine.collide_select`` its pair values
-and top-k, and ``engine.collide_sums`` its pair values and sums.
+block's enumeration, ``engine.collide_select`` its pair values and
+top-k, and ``engine.collide_sums`` its pair values and sums.
 """
 from __future__ import annotations
 
@@ -41,14 +44,15 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..kernels.collide.ops import pair_sums, pair_topk
+from ..kernels.collide.ops import collide_enumerate, pair_sums, pair_topk
 from ..obs.trace import region
 
 __all__ = ["row_products", "row_blocks", "topk", "squared_row_sums"]
 
-# Device bytes a block holds at its peak per enumerated product (the
-# enumeration's indices and values, the sort's keys, order and scratch) and
-# per row (the top-k's fill candidates and block outputs at k up to ~40).
+# Device bytes a block holds at its peak per enumerated product (the plain
+# enumeration's indices and values, the sort's keys, order and scratch; the
+# kernel's keys and values take less) and per row (the top-k's fill
+# candidates and block outputs at k up to ~40).
 PRODUCT_BYTES = 96
 ROW_BYTES = 1024
 # Rows a time when counting each row's products (an (rows, T) gather).
@@ -84,44 +88,24 @@ def row_blocks(cum: np.ndarray, cap_bytes: int) -> List[Tuple[int, int]]:
     return out
 
 
-def _collide(index, gl_q: torch.Tensor, q: torch.Tensor, n_products: int):
-    """(key, prod), one entry a product of the block's rows: ``key`` = row
-    · n_ref + column (rows the block's own, from 0) sorted, ``prod`` the
-    products ``q·w`` in that order, a pair's in ascending tree order."""
-    dev = gl_q.device
-    i64 = dict(dtype=torch.int64, device=dev)
-    n, T = gl_q.shape
-    leaf = gl_q.reshape(-1).long()                    # row-major: trees up
-    start = index.offs[leaf, 0].long()
-    cnt = torch.where(q.reshape(-1) != 0, index.offs[leaf, -1].long() - start,
-                      0)
-    rep = torch.repeat_interleave(torch.arange(n * T, **i64), cnt,
-                                  output_size=n_products)
-    pos = torch.arange(n_products, **i64) + \
-        (start - (torch.cumsum(cnt, 0) - cnt))[rep]
-    key = (rep // T) * index.n_ref + index.col[pos].long()
-    prod = q.reshape(-1)[rep] * index.w[pos]
-    del rep, pos, leaf, start, cnt
-    # stable: each (row, column)'s products stay in ascending tree order
-    key, order = torch.sort(key, stable=True)
-    return key, prod[order]
-
-
 def topk(index, gl_q: torch.Tensor, q: torch.Tensor, cum: np.ndarray,
-         blocks, depth: int, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+         row_start: torch.Tensor, blocks, depth: int,
+         k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(indices int64, values float64), each (n, k): every query row's ``k``
     largest proximities, values descending and equal values by ascending
     column (ranks past the reference count read column 0, value 0), over
-    the row ``blocks`` of :func:`row_blocks` on ``cum``; ``depth`` bounds
-    the trees of a pair (the most nonzero query weights of a row)."""
+    the row ``blocks`` of :func:`row_blocks` on ``cum`` (``row_start``:
+    ``cum`` as an int64 tensor on the index's device); ``depth`` bounds the
+    trees of a pair (the most nonzero query weights of a row)."""
     n, dev = gl_q.shape[0], gl_q.device
     kk = min(k, index.n_ref)
     idx = torch.zeros((n, k), dtype=torch.int64, device=dev)
     val = torch.zeros((n, k), dtype=torch.float64, device=dev)
     for i0, i1 in blocks:
         with region("engine.collide"):
-            key, prod = _collide(index, gl_q[i0:i1], q[i0:i1],
-                                 int(cum[i1] - cum[i0]))
+            key, prod = collide_enumerate(
+                index, gl_q[i0:i1], q[i0:i1], row_start[i0:i1 + 1],
+                int(cum[i1] - cum[i0]))
         with region("engine.collide_select"):
             pair_topk(key, prod, index.n_ref, i1 - i0, depth,
                       idx[i0:i1, :kk], val[i0:i1, :kk])
@@ -129,20 +113,22 @@ def topk(index, gl_q: torch.Tensor, q: torch.Tensor, cum: np.ndarray,
 
 
 def squared_row_sums(index, gl_q: torch.Tensor, q: torch.Tensor,
-                     cum: np.ndarray, blocks, depth: int,
+                     cum: np.ndarray, row_start: torch.Tensor, blocks,
+                     depth: int,
                      class_of: Optional[torch.Tensor] = None,
                      n_classes: Optional[int] = None) -> torch.Tensor:
     """Σ_j P(i, j)² per query row, (n,); with ``class_of`` (the reference
     columns' int64 classes on the device), per (row, class), (n,
     n_classes); in the factors' dtype, over the row ``blocks`` of
-    :func:`row_blocks` on ``cum``."""
+    :func:`row_blocks` on ``cum`` (``row_start`` as in :func:`topk`)."""
     n, dev = gl_q.shape[0], gl_q.device
     C = 1 if class_of is None else int(n_classes)
     out = torch.zeros(n * C, dtype=index.w.dtype, device=dev)
     for i0, i1 in blocks:
         with region("engine.collide"):
-            key, prod = _collide(index, gl_q[i0:i1], q[i0:i1],
-                                 int(cum[i1] - cum[i0]))
+            key, prod = collide_enumerate(
+                index, gl_q[i0:i1], q[i0:i1], row_start[i0:i1 + 1],
+                int(cum[i1] - cum[i0]))
         with region("engine.collide_sums"):
             pair_sums(key, prod, index.n_ref, i1 - i0, depth, class_of, C,
                       out[i0 * C:i1 * C])

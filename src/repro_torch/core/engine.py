@@ -283,9 +283,11 @@ class ProximityEngine:
         self._leaf_density: Optional[float] = None
         self._index_lock = threading.Lock()
         # the collision path's plan: the training rows' cumulative products
-        # on the host, their share, the most trees a pair can meet in, the
-        # row blocks of a cap and the rows longer than a split
+        # on the host (and, from the first collision call, on the device),
+        # their share, the most trees a pair can meet in, the row blocks of
+        # a cap and the rows longer than a split
         self._collide_cum: Optional[np.ndarray] = None
+        self._collide_row_start: Optional[torch.Tensor] = None
         self._collide_share: Optional[float] = None
         self._collide_depth = 0
         self._collide_blocks: Tuple[int, list] = (0, [])
@@ -585,18 +587,23 @@ class ProximityEngine:
 
     def _collide_args(self) -> tuple:
         """The collision path's arguments for the training rows: the leaf
-        index, the query factors, their cumulative products, the row blocks
-        (``_COLLIDE_BYTES`` of transients each, or half the budget) and the
-        most trees a pair can collide in; counts the call's rows and
-        products in ``engine_collide_rows_total`` and
-        ``engine_collisions_total``, and on the card the rows the pair
-        kernels split in ``engine_collide_split_rows_total``."""
+        index, the query factors, their cumulative products on the host and
+        on the device (copied once, at the first call; counted in
+        ``memory_bytes``), the row blocks (``_COLLIDE_BYTES`` of transients
+        each, or half the budget) and the most trees a pair can collide
+        in; counts the call's rows and products in
+        ``engine_collide_rows_total`` and ``engine_collisions_total``, and
+        on the card the rows the pair kernels split in
+        ``engine_collide_split_rows_total``."""
         self.collision_share()
         cap = _COLLIDE_BYTES if self.memory_budget_bytes is None \
             else min(_COLLIDE_BYTES, self.memory_budget_bytes // 2)
         if self._collide_blocks[0] != cap:
             self._collide_blocks = (cap, collide.row_blocks(
                 self._collide_cum, cap))
+        if self._collide_row_start is None:
+            self._collide_row_start = torch.as_tensor(self._collide_cum,
+                                                      device=self.device)
         split = split_products(self._collide_depth)
         if self._collide_split[0] != split:
             self._collide_split = (split, int(
@@ -612,7 +619,8 @@ class ProximityEngine:
                         "rows the collision-pair kernels split over warps"
                         ).inc(self._collide_split[1])
         return (self.leaf_index(), self.gl, self.q, self._collide_cum,
-                self._collide_blocks[1], self._collide_depth)
+                self._collide_row_start, self._collide_blocks[1],
+                self._collide_depth)
 
     def _block(self, gl_q: torch.Tensor, q: torch.Tensor,
                cols=None) -> torch.Tensor:
@@ -831,9 +839,10 @@ class ProximityEngine:
     # ---------------- accounting ----------------
     def memory_bytes(self) -> dict:
         """Resident factor bytes per component (dense factors and, once
-        built, the block kernel's leaf index on the device; CSR maps and
-        leaf values on the host).  The dense factors, Q, W and the total
-        are also pushed to the process-wide metrics registry (the
+        built, the block kernel's leaf index and the collision path's
+        cumulative products on the device; CSR maps and leaf values on the
+        host).  The dense factors, Q, W and the total are also pushed to
+        the process-wide metrics registry (the
         ``engine_memory_bytes{component}`` gauge family).  Under a
         ``memory_budget_bytes`` the report also carries the budget and
         whether the total fits it, and the budget goes to the
@@ -848,6 +857,8 @@ class ProximityEngine:
             out["leaf_values"] = int(self.leaf_values.nbytes)
         index = self._leaf_index
         out["leaf_index"] = 0 if index is None else index.nbytes
+        row_start = self._collide_row_start
+        out["collide_cum"] = 0 if row_start is None else nbytes(row_start)
         out["total"] = sum(out.values())
         if self.memory_budget_bytes is not None:
             out["budget"] = int(self.memory_budget_bytes)

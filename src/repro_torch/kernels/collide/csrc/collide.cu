@@ -1,5 +1,42 @@
-// Collision pairs to each row's top-k and squared sums (sm_90a), in float64
-// or float32:
+// A row block's leaf collisions in key order, then the collision pairs to
+// each row's top-k and squared sums (sm_90a), in float64 or float32.
+//
+// The enumeration (collide_enumerate_kernel): every product q_t(i) * w_t(j)
+// of the block's rows, one rounding (__dmul_rn / __fmul_rn), with its key
+// i * n_ref + j, written in key order with a pair's products in ascending
+// tree order: the bits of the plain version's row-major enumeration and
+// 64-bit stable sort (kernels/collide/ref.py::collide_enumerate_ref),
+// without the sort.  Replaces no TPU kernel (the reference's train-side ops
+// write dense blocks).  Each of a row's nonzero-weight trees t gives a list
+// L_t of its leaf's members, columns ascending (the leaf index keeps them
+// so), so key order is a merge of the row's lists and a product's place is
+// its rank there: the row's first place (row_start, the rows' cumulative
+// products on the device) plus, over every list L_u, its count of columns
+// below c (u >= t) or at most c (u < t), which for u = t is the product's
+// own place in its list.  Ranks are independent, so no product waits for
+// another and nothing is written twice.
+//
+// Bound: one read of each product's column and weight (12 bytes in float64, 8
+// in float32) and one write of its key and value (16 or 12 bytes).  Design: a
+// warp a slice of a row's products in list order (tree, then member), lanes
+// striding over them 32 at a time, so every lane has a product whatever the
+// lists' lengths.  Lane j holds tree 32 g + j's list (its start, its length,
+// zero where q is zero, and its first place in the row; a row of more than 32
+// trees takes its lists 32 at a time, reading them again for each chunk); each
+// lane finds its product's list among them and counts its column in every
+// other list by a branch-free binary search, the same steps on every lane,
+// through L1.  The lanes of a chunk hold neighbouring members of one list, so
+// their searches share the first steps' reads.  Slices are short (`split`, the
+// wrapper's ENUM_SPLIT products): a launch lasts as long as its longest warp,
+// and a row in large pure leaves (30,821 products at 1,000,000 rows) searches
+// long lists for every product, so at slices of 1,024 such warps set each
+// launch's length (on the H100 an op's enumeration took 70 ms at 1,024, 47 at
+// 512, 37 at 256 and 32 at 128).  Measured and dropped: staging a row's columns
+// in shared memory (it takes room from L1), merging each chunk against the
+// other lists in coalesced windows from a cursor a list, and issuing four
+// lists' searches together.
+//
+// The pair kernels:
 //     given one row block's products q_t(i) * w_t(j), sorted by the key
 //     i * n_ref + j (a pair's products in ascending tree order), each row's
 //     pair values P(i, j) = ((0 + p_0) + p_1) + ..., then either its k
@@ -485,6 +522,145 @@ collide_sums_merge(const long long* __restrict__ key, long long n_products,
     }
 }
 
+// ---- the enumeration ----
+
+// The members of l[0..n) below x (n >= 1): the same steps on every lane
+// for one n, whatever x.
+__device__ __forceinline__ int count_below(const int* __restrict__ l, int n,
+                                           int x) {
+    const int* b = l;
+    while (n > 1) {
+        const int h = n >> 1;
+        b = __ldg(b + h) < x ? b + h : b;
+        n -= h;
+    }
+    return (int)(b - l) + (__ldg(b) < x);
+}
+
+// Lane j's part of a group of 32 trees (tree 32 g + j of the row): its
+// list's start in the index, its length (0 where q is 0 or past the trees),
+// its first place among the row's products, and q.
+template <typename V>
+struct List {
+    int start, n;
+    long long at;
+    V q;
+};
+
+// Group g's lists, the row's products before it being `before`; returns
+// the products before the next group.
+template <typename V>
+__device__ __forceinline__ long long load_lists(
+        const int* __restrict__ offs, int ow, const int* __restrict__ gl,
+        const V* __restrict__ q, int T, int g, long long before, int lane,
+        List<V>& L) {
+    const int t = g * 32 + lane;
+    L.start = 0;
+    L.n = 0;
+    L.q = V(0);
+    if (t < T) {
+        const long long o = (long long)__ldg(gl + t) * ow;
+        L.q = __ldg(q + t);
+        L.start = __ldg(offs + o);
+        if (L.q != V(0)) L.n = __ldg(offs + o + ow - 1) - L.start;
+    }
+    long long s = L.n;                              // inclusive scan
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const long long u = __shfl_up_sync(RT_FULL, s, d);
+        if (lane >= d) s += u;
+    }
+    L.at = before + s - L.n;
+    return before + __shfl_sync(RT_FULL, s, 31);
+}
+
+// Warp w < rows takes row w's first `split` products (in list order);
+// warp rows + g the products [g split, (g + 1) split) of the block (its
+// places in list order) past their row's first `split`, as part_of cuts
+// the pair kernels' rows.  Lane l takes product l of each chunk of 32.
+template <typename V>
+__global__ void __launch_bounds__(CT_THREADS)
+collide_enumerate_kernel(const int* __restrict__ offs, int ow,
+                         const int* __restrict__ col,
+                         const V* __restrict__ wv,
+                         const int* __restrict__ gl_q,
+                         const V* __restrict__ q, int T, int rows,
+                         const long long* __restrict__ row_start,
+                         long long n_products, long long n_ref,
+                         long long split, long long* __restrict__ key,
+                         V* __restrict__ prod) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const long long w = (long long)blockIdx.x * CT_WARPS + warp;
+    const long long first = __ldg(row_start);
+    long long r = w, x = 0;
+    if (w >= rows) {                                // a segment's warp
+        x = (w - rows) * split;
+        if (x >= n_products) return;
+        // the last row whose first product is at or before x
+        long long a = 0, b = rows;
+        while (a < b) {
+            const long long m = (a + b + 1) >> 1;
+            if (__ldg(row_start + m) - first <= x) a = m; else b = m - 1;
+        }
+        r = a;
+    }
+    const long long lo = __ldg(row_start + r) - first;
+    const long long n_row = __ldg(row_start + r + 1) - first - lo;
+    const long long p0 = w < rows ? 0 : max(x - lo, split);
+    const long long p1 = min(w < rows ? split : x - lo + split, n_row);
+    if (p0 >= p1) return;                           // the whole warp
+    const int* gl = gl_q + r * T;
+    const V* qr = q + r * T;
+    const int groups = (T + 31) / 32;
+    List<V> L0;
+    load_lists<V>(offs, ow, gl, qr, T, 0, 0, lane, L0);
+    // f(u, start, n, at, q) for each of the row's lists that is not empty,
+    // trees ascending (the arguments the same on every lane)
+    auto each_list = [&](auto&& f) {
+        long long before = 0;
+        for (int g = 0; g < groups; ++g) {
+            List<V> L = L0;
+            if (groups > 1)
+                before = load_lists<V>(offs, ow, gl, qr, T, g, before, lane,
+                                       L);
+            for (unsigned m = __ballot_sync(RT_FULL, L.n > 0); m;
+                 m &= m - 1) {
+                const int j = __ffs(m) - 1;
+                f(g * 32 + j, __shfl_sync(RT_FULL, L.start, j),
+                  __shfl_sync(RT_FULL, L.n, j), __shfl_sync(RT_FULL, L.at, j),
+                  __shfl_sync(RT_FULL, L.q, j));
+            }
+        }
+    };
+    for (long long c0 = p0; c0 < p1; c0 += 32) {
+        const long long p = c0 + lane;
+        // the lane's product: its tree, its place in its list and in the
+        // index, and its q
+        int t = -1, m = 0, at = 0;
+        V qp = V(0);
+        each_list([&](int u, int s, int n, long long a, V qu) {
+            if (p < p1 && p >= a && p < a + n) {
+                t = u;
+                m = (int)(p - a);
+                at = s + m;
+                qp = qu;
+            }
+        });
+        const int c = __ldg(col + at);
+        // its place: its own in its list, plus its count in every other
+        // list (a lane past the slice, t < 0, counts nothing)
+        long long rank = m;
+        each_list([&](int u, int s, int n, long long, V) {
+            if (u != t && t >= 0)
+                rank += count_below(col + s, n, c + (u < t));
+        });
+        if (t >= 0) {
+            key[lo + rank] = r * n_ref + c;
+            prod[lo + rank] = mul_rn(qp, __ldg(wv + at));
+        }
+    }
+}
+
 // Stage 1, then stage 2, of an op over rows + ceil(n_products / split)
 // warps.
 static bool launchable(int rows, long long n_products, long long n_ref,
@@ -580,10 +756,58 @@ static int sums(const void* key, const void* prod, long long n_products,
                                          count, out, s);
 }
 
+template <typename V>
+static int enumerate(const void* offs, int ow, const void* col,
+                     const void* w, const void* gl_q, const void* q, int T,
+                     int rows, const void* row_start, long long n_products,
+                     long long n_ref, long long split, void* key, void* prod,
+                     void* stream) {
+    if (rows <= 0 || n_products <= 0) return 0;
+    if (T < 1 || ow < 1 || split < 1 || n_ref >= RT_NONE
+        || (long long)rows + (n_products + split - 1) / split
+               > (long long)INT_MAX * CT_WARPS)
+        return (int)cudaErrorInvalidValue;
+    collide_enumerate_kernel<V><<<grid_of(rows + (n_products + split - 1)
+                                          / split), CT_THREADS, 0,
+                                  (cudaStream_t)stream>>>(
+        (const int*)offs, ow, (const int*)col, (const V*)w,
+        (const int*)gl_q, (const V*)q, T, rows,
+        (const long long*)row_start, n_products, n_ref, split,
+        (long long*)key, (V*)prod);
+    return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 const char* repro_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);
+}
+
+// The leaf index: offs (n_leaves, ow) int32, col (nnz) int32, w (nnz) f64;
+// the block's query factors gl_q (rows, T) int32 and q (rows, T) f64, rows
+// contiguous; row_start (rows + 1) int64, the rows' cumulative products
+// (the block's first row's need not be 0), their total n_products; a warp
+// takes `split` (at least 1) products.  Writes key (n_products) int64 and
+// prod (n_products) f64 in key order.
+int collide_enumerate_f64(const void* offs, int ow, const void* col,
+                          const void* w, const void* gl_q, const void* q,
+                          int T, int rows, const void* row_start,
+                          long long n_products, long long n_ref,
+                          long long split, void* key, void* prod,
+                          void* stream) {
+    return enumerate<double>(offs, ow, col, w, gl_q, q, T, rows, row_start,
+                             n_products, n_ref, split, key, prod, stream);
+}
+
+// The same with w, q and prod in f32.
+int collide_enumerate_f32(const void* offs, int ow, const void* col,
+                          const void* w, const void* gl_q, const void* q,
+                          int T, int rows, const void* row_start,
+                          long long n_products, long long n_ref,
+                          long long split, void* key, void* prod,
+                          void* stream) {
+    return enumerate<float>(offs, ow, col, w, gl_q, q, T, rows, row_start,
+                            n_products, n_ref, split, key, prod, stream);
 }
 
 // key (n_products) int64 sorted, prod (n_products) f64; rows longer than

@@ -1,20 +1,23 @@
-"""Collision-pair wrapper: the CUDA kernel for CUDA tensors, the plain
-version for CPU tensors, and nothing else.
+"""Collision wrappers: the CUDA kernels for CUDA tensors, the plain versions
+for CPU tensors, and nothing else.
 
-The collision path (``core/collide.py``) hands each row block's products
-here, sorted by the key ``row · n_ref + column`` with a pair's products in
-ascending tree order.  :func:`pair_topk` writes each row's exact top-k
-(values descending, equal values by ascending column, a row holding fewer
-than ``k`` pairs filled with value 0 at the smallest columns it does not
-hold); :func:`pair_sums` each row's squared pair values summed by class in
-column order.  Kernel and plain version give a pair's value the same bits
-(unfused adds in tree order), so their top-k agree bit for bit; the class
-sums add in column order from 0 in both, bit for bit on the CPU's plain
-version.  On the card a row of more than :func:`split_products` products
-is split over several warps: for the top-k each slice keeps its own list
-and a second launch merges them (the order is total, so the answer is the
-same); for the sums each slice writes its pairs' squares and classes, and
-a second launch adds them a lane a class in column order (the same adds).
+The collision path (``core/collide.py``) enumerates each row block's
+products with :func:`collide_enumerate`, in the order of the key ``row ·
+n_ref + column`` with a pair's products in ascending tree order (the kernel
+writes each product at its rank in the merge of its row's leaf lists; the
+plain version sorts), and hands them to the pair
+wrappers.  :func:`pair_topk` writes each row's exact top-k (values
+descending, equal values by ascending column, a row holding fewer than
+``k`` pairs filled with value 0 at the smallest columns it does not hold);
+:func:`pair_sums` each row's squared pair values summed by class in column
+order.  Kernel and plain version give a pair's value the same bits (unfused
+adds in tree order), so their top-k agree bit for bit; the class sums add
+in column order from 0 in both, bit for bit on the CPU's plain version.  On
+the card a row of more than :func:`split_products` products is split over
+several warps: for the top-k each slice keeps its own list and a second
+launch merges them (the order is total, so the answer is the same); for the
+sums each slice writes its pairs' squares and classes, and a second launch
+adds them a lane a class in column order (the same adds).
 """
 from __future__ import annotations
 
@@ -25,9 +28,10 @@ import torch
 
 from .. import _build
 from ..._tensor import require
-from .ref import pair_sums_ref, pair_topk_ref
+from .ref import collide_enumerate_ref, pair_sums_ref, pair_topk_ref
 
-__all__ = ["MAX_K", "split_products", "pair_topk", "pair_sums"]
+__all__ = ["MAX_K", "ENUM_SPLIT", "split_products", "collide_enumerate",
+           "pair_topk", "pair_sums"]
 
 MAX_K = 64               # the kernel's widest top-k (two entries a lane)
 # Products a warp takes of a row: a launch lasts as long as its longest
@@ -36,10 +40,18 @@ MAX_K = 64               # the kernel's widest top-k (two entries a lane)
 # the H100; slices of 1,024 products took 6% off a block's sums and 15%
 # off its top-k against slices of 2,048 there.
 SPLIT = 1024
+# Products a warp of the enumeration takes: a launch lasts as long as its
+# longest warp, and a row in large pure leaves searches long lists for each
+# product; in the million-row deployment on the H100 an op's enumeration
+# took 70 ms in slices of 1,024 products, 37 in slices of 256, 32 in slices
+# of 128 and 32 in slices of 64.
+ENUM_SPLIT = 128
 
 _LIB: Optional[ctypes.CDLL] = None
 _TOPK = {torch.float64: "collide_topk_f64", torch.float32: "collide_topk_f32"}
 _SUMS = {torch.float64: "collide_sums_f64", torch.float32: "collide_sums_f32"}
+_ENUM = {torch.float64: "collide_enumerate_f64",
+         torch.float32: "collide_enumerate_f32"}
 
 
 def _lib() -> ctypes.CDLL:
@@ -58,6 +70,13 @@ def _lib() -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [
                 ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                 ctypes.c_longlong] + [ctypes.c_void_p] * 5
+            fn.restype = ctypes.c_int
+        for name in _ENUM.values():
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [
+                ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+                ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [
+                ctypes.c_void_p] * 3
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -83,6 +102,60 @@ def split_products(depth: int) -> int:
     ``SPLIT``, or ``MAX_K`` times ``depth`` (the most products of a pair)
     where that is more, so a split row holds at least ``MAX_K`` pairs."""
     return max(SPLIT, MAX_K * int(depth))
+
+
+def collide_enumerate(index, gl_q: torch.Tensor, q: torch.Tensor,
+                      row_start: torch.Tensor, n_products: int):
+    """(key int64, prod), each (n_products,): every product ``q_t(i) ·
+    w_t(j)`` of the block's query rows ``gl_q``/``q`` (n, T) against the
+    leaf index ``index`` (a ``LeafIndex``), with its key ``i · n_ref + j``
+    (rows the block's own, from 0), in key order, a pair's products in
+    ascending tree order.  ``row_start`` (n + 1,) int64 holds the rows'
+    cumulative product counts on the index's device (the block's slice of
+    the engine's; its first need not be 0) and ``n_products`` their total
+    (from the host's copy).  CPU tensors take the plain version (which
+    needs no ``row_start``); CUDA tensors launch the kernel, a warp every
+    ``ENUM_SPLIT`` products of a row (counted in
+    ``collide_enumerate.launches``), which reads nothing back to the
+    host."""
+    dev, dtype = index.col.device, index.w.dtype
+    if dtype not in _ENUM:
+        raise TypeError(f"the index's weights must be torch.float64 or "
+                        f"torch.float32, got {dtype}")
+    require(index.offs, torch.int32, "index.offs", dev)
+    require(index.col, torch.int32, "index.col", dev)
+    require(gl_q, torch.int32, "gl_q", dev)
+    require(q, dtype, "q", dev)
+    require(row_start, torch.int64, "row_start", dev)
+    n = gl_q.shape[0]
+    if gl_q.dim() != 2 or q.shape != gl_q.shape or \
+            row_start.shape != (n + 1,):
+        raise ValueError(f"need gl_q/q (n, T) and row_start (n + 1,); got "
+                         f"{tuple(gl_q.shape)}, {tuple(q.shape)}, "
+                         f"{tuple(row_start.shape)}")
+    if n_products < 0:
+        raise ValueError(f"n_products must be >= 0, got {n_products}")
+    if dev.type == "cpu":
+        return collide_enumerate_ref(index, gl_q, q, n_products)
+    if dev.type != "cuda":
+        raise ValueError(f"collide_enumerate runs on 'cuda' or 'cpu', got "
+                         f"{dev}")
+    key = torch.empty(n_products, dtype=torch.int64, device=dev)
+    prod = torch.empty(n_products, dtype=dtype, device=dev)
+    if n == 0 or n_products == 0:
+        return key, prod
+    gl_q, q, lib = gl_q.contiguous(), q.contiguous(), _lib()
+    offs, row_start = index.offs.contiguous(), row_start.contiguous()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, _ENUM[dtype])(
+            offs.data_ptr(), offs.shape[1], index.col.data_ptr(),
+            index.w.data_ptr(), gl_q.data_ptr(), q.data_ptr(), gl_q.shape[1],
+            n, row_start.data_ptr(), n_products, index.n_ref, ENUM_SPLIT,
+            key.data_ptr(), prod.data_ptr(), stream)
+    _build.check(lib, err, "collide_enumerate launch")
+    collide_enumerate.launches += 1
+    return key, prod
 
 
 def pair_topk(key: torch.Tensor, prod: torch.Tensor, n_ref: int, rows: int,
@@ -166,5 +239,6 @@ def pair_sums(key: torch.Tensor, prod: torch.Tensor, n_ref: int, rows: int,
     return None
 
 
+collide_enumerate.launches = 0
 pair_topk.launches = 0
 pair_sums.launches = 0

@@ -1,4 +1,9 @@
-"""Plain PyTorch version of the collision-pair kernel.
+"""Plain PyTorch versions of the collision kernels.
+
+:func:`collide_enumerate_ref` enumerates one row block's products from the
+leaf index, row-major (row, tree, member), and sorts them by the key ``row
+· n_ref + column`` with a stable sort, so a pair's products stay in
+ascending tree order: the order the enumeration kernel writes them in.
 
 One row block's products, sorted by the key ``row · n_ref + column`` (a
 pair's products in ascending tree order), are added per pair from its
@@ -19,7 +24,31 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["pair_topk_ref", "pair_sums_ref"]
+__all__ = ["collide_enumerate_ref", "pair_topk_ref", "pair_sums_ref"]
+
+
+def collide_enumerate_ref(index, gl_q: torch.Tensor, q: torch.Tensor,
+                          n_products: int):
+    """(key, prod), one entry a product of the block's rows: ``key`` = row
+    · n_ref + column (rows the block's own, from 0) sorted, ``prod`` the
+    products ``q·w`` in that order, a pair's in ascending tree order."""
+    dev = gl_q.device
+    i64 = dict(dtype=torch.int64, device=dev)
+    n, T = gl_q.shape
+    leaf = gl_q.reshape(-1).long()                    # row-major: trees up
+    start = index.offs[leaf, 0].long()
+    cnt = torch.where(q.reshape(-1) != 0, index.offs[leaf, -1].long() - start,
+                      0)
+    rep = torch.repeat_interleave(torch.arange(n * T, **i64), cnt,
+                                  output_size=n_products)
+    pos = torch.arange(n_products, **i64) + \
+        (start - (torch.cumsum(cnt, 0) - cnt))[rep]
+    key = (rep // T) * index.n_ref + index.col[pos].long()
+    prod = q.reshape(-1)[rep] * index.w[pos]
+    del rep, pos, leaf, start, cnt
+    # stable: each (row, column)'s products stay in ascending tree order
+    key, order = torch.sort(key, stable=True)
+    return key, prod[order]
 
 
 def _pairs(key: torch.Tensor, prod: torch.Tensor, n_ref: int, depth: int):

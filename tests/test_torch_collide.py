@@ -11,10 +11,13 @@ under a budget; the rule (``ProximityEngine.collision_mode``) on a deep
 RF-GAP forest and on a booster; the spans and counters; the collision-pair
 kernel's warp walk (``kernels/collide/csrc/collide.cu``) replayed in numpy
 against its plain version, on forests' products and on products built to
-break it.  A CPU engine keeps its own paths, so the
+break it; the enumeration's plain version (a stable sort) against a loop
+over every product, and the enumeration kernel's merge ranks replayed in
+numpy against it, on forests and on leaf indexes made by hand.  A CPU
+engine keeps its own paths, so the
 tests send train-side calls down the collision path by patching
-``_train_path``; the marked tests hold the kernel on the card to its
-plain version bit for bit and the card's collision path to its K2 blocks.
+``_train_path``; the marked tests hold the kernels on the card to their
+plain versions bit for bit and the card's collision path to its K2 blocks.
 """
 import importlib.util
 from pathlib import Path
@@ -29,9 +32,10 @@ from repro_torch.core import engine as eng_mod
 from repro_torch.core.api import ForestKernel
 from repro_torch.core.engine import ProximityEngine
 from repro_torch.data.synthetic import friedman1, gaussian_classes
-from repro_torch.kernels.block_prox.ops import (build_leaf_index,
+from repro_torch.kernels.block_prox.ops import (LeafIndex, build_leaf_index,
                                                 leaf_members)
 from repro_torch.kernels.collide import ops as pair_ops
+from repro_torch.kernels.collide.ref import collide_enumerate_ref
 from repro_torch.kernels.block_prox.ref import block_prox_ref
 from repro_torch.obs import MetricsRegistry, global_registry, set_regions
 from repro_torch.obs.metrics import set_global_registry
@@ -219,7 +223,8 @@ def test_short_zero_and_tied_rows(k, cap):
     cum = np.concatenate([[0], np.cumsum(per)])
     blocks = collide.row_blocks(cum, cap)
     assert len(blocks) == (5 if cap == 1 else 1)
-    idx, val = collide.topk(ix, gl_q, q, cum, blocks, 3, k)
+    row_start = torch.as_tensor(cum)
+    idx, val = collide.topk(ix, gl_q, q, cum, row_start, blocks, 3, k)
     P = block_prox_ref(gl_q, q, gl_w, w)
     kk = min(k, 12)
     ri, rv = prox.topk(torch, P, kk)
@@ -227,7 +232,7 @@ def test_short_zero_and_tied_rows(k, cap):
     assert not idx[:, kk:].any() and not val[:, kk:].any()
     assert idx[0, :kk].tolist() == list(range(kk))
     Y = prox.onehot(torch, np.arange(12) % 4, 4, torch.float64, "cpu")
-    sq = collide.squared_row_sums(ix, gl_q, q, cum, blocks, 3,
+    sq = collide.squared_row_sums(ix, gl_q, q, cum, row_start, blocks, 3,
                                   torch.arange(12) % 4, 4)
     assert torch.allclose(sq, prox.class_sq_sums(P, Y), rtol=0, atol=1e-15)
 
@@ -434,10 +439,10 @@ def test_kernel_walk_gives_the_plain_version(forests, name, k):
     in column order on the CPU)."""
     fk, y = forests[name]
     eng = fk.engine
-    index, gl, q, cum, blocks, depth = eng._collide_args()
+    index, gl, q, cum, row_start, blocks, depth = eng._collide_args()
     rows = min(eng.n_ref, 300)
-    from repro_torch.core.collide import _collide
-    key, prod = _collide(index, gl[:rows], q[:rows], int(cum[rows]))
+    key, prod = pair_ops.collide_enumerate(
+        index, gl[:rows], q[:rows], row_start[:rows + 1], int(cum[rows]))
     cls = torch.as_tensor(y, dtype=torch.int64)
     _against_the_plain_version(key, prod, eng.n_ref, rows, depth,
                                min(k, eng.n_ref), ((None, 1), (cls, 5)))
@@ -553,6 +558,303 @@ def test_pair_wrappers_never_take_the_plain_version_off_the_cpu(
                            torch.empty(2, dtype=torch.float64, device=meta))
 
 
+# ---------------- the enumeration ----------------
+
+# (rows, trees, min_samples_leaf): a forest of one tree (most rows' one
+# query weight is 0: the rows in its bag), of 15 and of 100 trees (more than
+# 32 lists a row)
+ENUM_FORESTS = {"one_tree": (500, 1, 3), "fifteen_trees": (1500, 15, 3),
+                "hundred_trees": (400, 100, 3)}
+ENUM_ROWS = 300
+
+
+@pytest.fixture(scope="module")
+def enum_forests():
+    out = {}
+    for name, (n, T, leaf) in ENUM_FORESTS.items():
+        X, y = gaussian_classes(n, d=10, n_classes=5, sep=0.8, seed=3)
+        out[name] = (ForestKernel(kernel_method="gap", n_trees=T,
+                                  max_depth=32, min_samples_leaf=leaf,
+                                  seed=0, device="cpu").fit(X, y), y)
+    return out
+
+
+def _loop_enumeration(gl_w, w, gl_q, q, n_ref):
+    """Every product q_t(i)·w_t(j) with its key i·n_ref + j, by a loop over
+    (row, tree, member) on the factors themselves (no leaf index), sorted
+    by (row, column, tree)."""
+    gl_w, w, gl_q, q = (t.numpy() for t in (gl_w, w, gl_q, q))
+    out = []
+    for i in range(gl_q.shape[0]):
+        for t in range(gl_q.shape[1]):
+            if q[i, t] == 0:
+                continue
+            for j in np.flatnonzero((gl_w[:, t] == gl_q[i, t])
+                                    & (w[:, t] != 0)):
+                out.append((i, int(j), t, q[i, t] * w[j, t]))
+    out.sort(key=lambda e: e[:3])
+    return (np.array([i * n_ref + j for i, j, _, _ in out], np.int64),
+            np.array([v for *_, v in out], w.dtype))
+
+
+@pytest.mark.parametrize("name", list(ENUM_FORESTS))
+def test_plain_enumeration_against_a_loop(enum_forests, name):
+    """The plain enumeration (row-major, then a stable sort) against a loop
+    over every (row, tree, member), on a forest's first rows: the same keys
+    and the same products bit for bit.  The rows hold empty rows (every
+    query weight 0: a one-tree forest's in-bag rows, and row 0 zeroed
+    here), rows with some weights 0, and a row in a pure leaf of many
+    members (every member of its class)."""
+    fk, y = enum_forests[name]
+    eng = fk.engine
+    rows = min(eng.n_ref, ENUM_ROWS)
+    gl, q = eng.gl[:rows], eng.q[:rows].clone()
+    q[0] = 0
+    members = leaf_members(eng.gl, eng.w, eng.total_leaves)
+    per = collide.row_products(members, gl, q)
+    assert int((per == 0).sum()) >= 1 and bool((q == 0).any())
+    if eng.gl.shape[1] == 1:
+        assert int((per == 0).sum()) > rows // 4
+    # the largest leaf a row meets: pure, and many members
+    big = members[gl.long()].masked_fill(q == 0, 0)
+    i, t = divmod(int(big.argmax()), gl.shape[1])
+    inleaf = ((eng.gl[:, t] == gl[i, t]) & (eng.w[:, t] != 0)).numpy()
+    assert int(big.max()) >= 8 and len(set(y[inleaf])) == 1
+    key, prod = collide_enumerate_ref(eng.leaf_index(), gl, q,
+                                      int(per.sum()))
+    want = _loop_enumeration(eng.gl, eng.w, gl, q, eng.n_ref)
+    assert np.array_equal(key.numpy(), want[0])
+    assert np.array_equal(prod.numpy(), want[1])
+
+
+def _count_below(lst, n, x):
+    """``count_below``'s branch-free search, lane by lane: the same steps
+    for every ``x``."""
+    b = np.zeros_like(x)
+    while n > 1:
+        h = n >> 1
+        b = np.where(lst[b + h] < x, b + h, b)
+        n -= h
+    return b + (lst[b] < x)
+
+
+def _enumerate_replay(index, gl_q, q, row_start, n_products, split):
+    """``collide_enumerate_kernel`` (``csrc/collide.cu``) in numpy, warp by
+    warp and lane by lane: a row's first ``split`` products (list order:
+    tree, then member), then the block's segments ``[g split, (g + 1)
+    split)`` past their row's first ``split`` (the row found by the
+    kernel's search of ``row_start``); a row's lists read 32 trees at a
+    time; lane l takes product l of each chunk of 32, finds its list and
+    is written at its row's first place plus its place in its list plus
+    its count in every other list (below its column, or at most it in a
+    list of an earlier tree) by the kernel's branch-free search.  Checks
+    that every place is written once.  Returns (key, prod)."""
+    offs, col, w = (t.numpy() for t in (index.offs, index.col, index.w))
+    gl, qq, rs = gl_q.numpy(), q.numpy(), row_start.numpy()
+    rows, T = gl.shape
+    ow, lanes = offs.shape[1], np.arange(32)
+    key = np.full(n_products, -1, np.int64)
+    prod = np.zeros(n_products, w.dtype)
+    written = np.zeros(n_products, np.int64)
+    first = rs[0]
+    for wi in range(rows + -(-n_products // split)):
+        r, x = wi, 0
+        if wi >= rows:
+            x = (wi - rows) * split
+            if x >= n_products:
+                continue
+            a, b = 0, rows
+            while a < b:
+                m = (a + b + 1) >> 1
+                a, b = (m, b) if rs[m] - first <= x else (a, m - 1)
+            r = a
+        lo = rs[r] - first
+        n_row = rs[r + 1] - first - lo
+        p0 = 0 if wi < rows else max(x - lo, split)
+        p1 = min(split if wi < rows else x - lo + split, n_row)
+        if p0 >= p1:
+            continue
+        lists, before = [], 0                   # (tree, start, n, at, q)
+        for g in range(-(-T // 32)):
+            t = g * 32 + lanes
+            ok = t < T
+            tt = np.minimum(t, T - 1)
+            o = gl[r, tt].astype(np.int64)
+            qu = np.where(ok, qq[r, tt], 0).astype(w.dtype)
+            start = np.where(ok, offs[o, 0], 0)
+            n = np.where(ok & (qu != 0), offs[o, ow - 1] - start, 0)
+            at = before + np.cumsum(n) - n
+            before += int(n.sum())
+            lists += [(g * 32 + j, start[j], n[j], at[j], qu[j])
+                      for j in np.flatnonzero(n > 0)]
+        for c0 in range(p0, p1, 32):
+            p = c0 + lanes
+            t = np.full(32, -1)
+            m = np.zeros(32, np.int64)
+            at = np.zeros(32, np.int64)
+            qp = np.zeros(32, w.dtype)
+            for u, s, n, a, qu in lists:
+                inside = (p < p1) & (p >= a) & (p < a + n)
+                t = np.where(inside, u, t)
+                m = np.where(inside, p - a, m)
+                at = np.where(inside, s + p - a, at)
+                qp = np.where(inside, qu, qp)
+            c = col[at].astype(np.int64)
+            rank = m.copy()
+            for u, s, n, _, _ in lists:
+                k = _count_below(col[s:s + n], n, c + (u < t))
+                rank += np.where((u != t) & (t >= 0), k, 0)
+            live = t >= 0
+            dst = lo + rank[live]
+            key[dst] = r * index.n_ref + c[live]
+            prod[dst] = qp[live] * w[at[live]]
+            np.add.at(written, dst, 1)
+    assert (written == 1).all()
+    return key, prod
+
+
+def _hand_index(T, rows, n_ref, pool, sizes, dtype, long_leaf=0, seed=0):
+    """A leaf index made by hand and a block of query rows against it:
+    (index, gl_q, q, cum).  Tree t has 8 leaves (ids 8 t .. 8 t + 7) of
+    ``sizes`` (low, high) members drawn from ``pool`` columns spread over
+    ``[0, n_ref)``, so the trees share columns and pairs collide in many
+    trees; with ``long_leaf``, tree 0's first leaf has that many members.
+    In a block of more than two rows, row 0's query weights are all 0 (an
+    empty row), row 1's are 0 but in its last tree and row 2 sits in tree
+    0's first leaf; the other weights are 0 with chance 0.4."""
+    rng = np.random.default_rng(seed)
+    L = 8
+    cols = np.sort(rng.choice(n_ref, pool, replace=False))
+    size = rng.integers(*sizes, T * L)
+    if long_leaf:
+        size[0] = long_leaf
+    lists = [np.sort(rng.choice(cols, min(m, pool), replace=False))
+             for m in size]
+    ends = np.cumsum([len(m) for m in lists])
+    offs = np.stack([ends - [len(m) for m in lists], ends], axis=1)
+    w = rng.uniform(0.01, 1, int(ends[-1])).astype(dtype)
+    index = LeafIndex(offs=torch.as_tensor(offs, dtype=torch.int32),
+                      col=torch.as_tensor(np.concatenate(lists),
+                                          dtype=torch.int32),
+                      w=torch.as_tensor(w), n_ref=n_ref, n_trees=T,
+                      range_w=n_ref)
+    gl = np.arange(T) * L + rng.integers(0, L, (rows, T))
+    q = np.where(rng.random((rows, T)) < 0.4, 0,
+                 rng.uniform(0.01, 1, (rows, T))).astype(dtype)
+    if rows > 2:
+        q[0] = 0
+        q[1, :-1], q[1, -1] = 0, 0.5
+        gl[2, 0], q[2, 0] = 0, 0.25
+    per = (np.where(q != 0, offs[gl, 1] - offs[gl, 0], 0)).sum(axis=1)
+    return (index, torch.as_tensor(gl, dtype=torch.int32),
+            torch.as_tensor(q), np.concatenate([[0], np.cumsum(per)]))
+
+
+# (trees, rows, n_ref, pool, member sizes, long leaf): lists across 32-lane
+# chunks; more than 32 trees, and more than 128; a row of a long list and
+# short ones, past the pair kernels' split; keys past 32 bits; a block of
+# one row
+HAND = {"fifteen_trees": (15, 24, 3000, 3000, (1, 120), 0),
+        "hundred_trees": (100, 6, 4000, 4000, (1, 24), 0),
+        "many_trees": (150, 3, 2000, 2000, (1, 40), 0),
+        "long_row": (15, 4, 9000, 9000, (1, 20), 3000),
+        "wide_keys": (15, 24, 2 ** 31 - 2, 300, (1, 120), 0),
+        "one_row": (40, 1, 3000, 3000, (1, 120), 0)}
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("case", list(HAND))
+def test_enumeration_ranks_on_hand_made_indexes(case, dtype):
+    """The kernel's merge ranks (replayed in numpy) against the plain
+    enumeration on hand-made indexes: every place written once, and the
+    same keys and products bit for bit, in the wrapper's slices and in
+    slices that cut the rows finer and coarser; the block's first row
+    need not start at 0."""
+    T, rows, n_ref, pool, sizes, long_leaf = HAND[case]
+    index, gl, q, cum = _hand_index(T, rows, n_ref, pool, sizes, dtype,
+                                    long_leaf)
+    n = int(cum[-1])
+    want = collide_enumerate_ref(index, gl, q, n)
+    if case == "wide_keys":
+        assert int(want[0][-1]) >= 2 ** 32
+    if case == "long_row":
+        assert int(np.diff(cum).max()) > pair_ops.split_products(T)
+    for split, offset in ((pair_ops.ENUM_SPLIT, 0), (100, 12345),
+                          (pair_ops.split_products(T), 0)):
+        got = _enumerate_replay(index, gl, q, torch.as_tensor(cum + offset),
+                                n, split)
+        assert np.array_equal(got[0], want[0].numpy())
+        assert np.array_equal(got[1], want[1].numpy())
+
+
+@pytest.mark.parametrize("name", list(ENUM_FORESTS))
+def test_enumeration_ranks_on_forest_blocks(enum_forests, monkeypatch,
+                                            name):
+    """The replayed kernel against the plain enumeration on a forest's own
+    row blocks (the engine's blocks at a small cap, each from its slice
+    of the rows' cumulative products), in the wrapper's slices and in the
+    pair kernels' split."""
+    fk, _ = enum_forests[name]
+    eng = fk.engine
+    monkeypatch.setattr(eng_mod, "_COLLIDE_BYTES", 1 << 17)
+    index, gl, q, cum, row_start, blocks, depth = eng._collide_args()
+    assert len(blocks) > 1
+    for i0, i1 in blocks[:3] + blocks[-1:]:
+        n = int(cum[i1] - cum[i0])
+        want = pair_ops.collide_enumerate(index, gl[i0:i1], q[i0:i1],
+                                          row_start[i0:i1 + 1], n)
+        for split in (pair_ops.ENUM_SPLIT, pair_ops.split_products(depth)):
+            got = _enumerate_replay(index, gl[i0:i1], q[i0:i1],
+                                    row_start[i0:i1 + 1], n, split)
+            assert np.array_equal(got[0], want[0].numpy())
+            assert np.array_equal(got[1], want[1].numpy())
+
+
+def test_enumerate_wrapper_checks_its_inputs():
+    index, gl, q, cum = _hand_index(3, 4, 100, 100, (1, 10), np.float64)
+    rs, n = torch.as_tensor(cum), int(cum[-1])
+    key, prod = pair_ops.collide_enumerate(index, gl, q, rs, n)
+    assert key.dtype == torch.int64 and prod.dtype == torch.float64
+    assert key.shape == prod.shape == (n,)
+    with pytest.raises(TypeError):
+        pair_ops.collide_enumerate(index, gl.long(), q, rs, n)
+    with pytest.raises(TypeError):
+        pair_ops.collide_enumerate(index, gl, q.float(), rs, n)
+    with pytest.raises(TypeError):
+        pair_ops.collide_enumerate(index, gl, q, rs.int(), n)
+    with pytest.raises(ValueError):
+        pair_ops.collide_enumerate(index, gl, q[:, :2], rs, n)
+    with pytest.raises(ValueError):
+        pair_ops.collide_enumerate(index, gl, q, rs[:-1], n)
+    with pytest.raises(ValueError):
+        pair_ops.collide_enumerate(index, gl, q, rs, -1)
+    half = LeafIndex(offs=index.offs, col=index.col, w=index.w.half(),
+                     n_ref=index.n_ref, n_trees=3, range_w=index.range_w)
+    with pytest.raises(TypeError):
+        pair_ops.collide_enumerate(half, gl, q.half(), rs, n)
+
+
+def test_enumerate_wrapper_never_takes_the_plain_version_off_the_cpu(
+        monkeypatch):
+    """A tensor that is not on the CPU never reaches the plain
+    enumeration: it launches the kernel (CUDA) or raises."""
+    def forbidden(*a, **k):
+        raise AssertionError("plain version called for a non-CPU tensor")
+    monkeypatch.setattr(pair_ops, "collide_enumerate_ref", forbidden)
+    meta = torch.device("meta")
+    index = LeafIndex(offs=torch.empty((4, 2), dtype=torch.int32,
+                                       device=meta),
+                      col=torch.empty(9, dtype=torch.int32, device=meta),
+                      w=torch.empty(9, dtype=torch.float64, device=meta),
+                      n_ref=5, n_trees=2, range_w=5)
+    with pytest.raises(ValueError, match="cuda"):
+        pair_ops.collide_enumerate(
+            index, torch.empty((3, 2), dtype=torch.int32, device=meta),
+            torch.empty((3, 2), dtype=torch.float64, device=meta),
+            torch.empty(4, dtype=torch.int64, device=meta), 6)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("block", ["forest", "synthetic"])
 @pytest.mark.parametrize("dtype", [np.float64, np.float32],
@@ -569,10 +871,10 @@ def test_card_kernel_equals_the_plain_version(dtype, block):
     if block == "forest":
         fk, y = _rf("rf_leaf3_f32" if dtype == np.float32 else "rf_leaf3")
         eng = fk.engine
-        index, gl, q, cum, blocks, depth = eng._collide_args()
-        from repro_torch.core.collide import _collide
+        index, gl, q, cum, row_start, blocks, depth = eng._collide_args()
         n_ref = rows = eng.n_ref
-        key, prod = _collide(index, gl, q, int(cum[rows]))
+        key, prod = pair_ops.collide_enumerate(index, gl, q, row_start,
+                                               int(cum[rows]))
         ks, classes = (10, 50), ((torch.as_tensor(y, dtype=torch.int64), 5),)
     else:
         key, prod, n_ref, rows, depth = _synthetic(100_000, dtype)
@@ -665,4 +967,92 @@ def test_card_split_rows_keep_their_bits_and_are_counted(monkeypatch,
         assert after["series"][""] - before["series"][""] == 2 * want
     assert want > 0
     for a, b in zip(*answers):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("case", list(HAND))
+def test_card_enumeration_equals_the_plain_version(case, dtype):
+    """The enumeration kernel on the card against its plain version on the
+    CPU, on the hand-made indexes: 15, 100 and 150 trees (more than 32
+    lists a row), a row past ``split_products`` (cut over many warps),
+    keys past 32 bits, a block of one row; ``key`` and ``prod`` bit for
+    bit, one launch, with the block's first row's products not at 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    T, rows, n_ref, pool, sizes, long_leaf = HAND[case]
+    index, gl, q, cum = _hand_index(T, rows, n_ref, pool, sizes, dtype,
+                                    long_leaf)
+    n = int(cum[-1])
+    want = collide_enumerate_ref(index, gl, q, n)
+    dev = torch.device("cuda", 0)
+    card = LeafIndex(offs=index.offs.to(dev), col=index.col.to(dev),
+                     w=index.w.to(dev), n_ref=n_ref, n_trees=T,
+                     range_w=index.range_w)
+    n0 = pair_ops.collide_enumerate.launches
+    got = pair_ops.collide_enumerate(card, gl.to(dev), q.to(dev),
+                                     torch.as_tensor(cum + 777, device=dev),
+                                     n)
+    torch.cuda.synchronize()
+    assert pair_ops.collide_enumerate.launches == n0 + 1
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32],
+                         ids=["f64", "f32"])
+def test_card_enumeration_on_out_of_core_blocks(monkeypatch, tmp_path,
+                                                dtype):
+    """The out-of-core deployment's forest (20 features, 5 classes, 15
+    trees, depth 32, leaf 3; here at 100,000 rows, under a budget): the
+    kernel against the plain enumeration run on the card (the sort) on its
+    first and longest row blocks, bit for bit; one block's enumeration is
+    one kernel, with no sort, no copy and no synchronisation; then the
+    engine's whole ``topk`` and ``squared_row_sums`` equal those of the
+    path that enumerates with the plain version, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    X, y = gaussian_classes(100_000, d=20, n_classes=5, sep=0.8, seed=0)
+    fk = ForestKernel(kernel_method="gap", n_trees=15, max_depth=32,
+                      min_samples_leaf=3, seed=0, dtype=dtype,
+                      device="cuda", scratch_dir=str(tmp_path),
+                      memory_budget_bytes=512 << 20).fit(X, y)
+    eng = fk.engine
+    monkeypatch.setattr(eng_mod, "_COLLIDE_BYTES", 1 << 26)
+    assert eng._train_path(None) == "collide"
+    index, gl, q, cum, row_start, blocks, depth = eng._collide_args()
+    sizes = np.diff(cum[[b[0] for b in blocks] + [blocks[-1][1]]])
+    assert len(blocks) > 2
+    longest = int(np.argmax(sizes))
+    for b in sorted({0, longest}):
+        i0, i1 = blocks[b]
+        args = (index, gl[i0:i1], q[i0:i1])
+        want = collide_enumerate_ref(*args, int(sizes[b]))
+        got = pair_ops.collide_enumerate(*args, row_start[i0:i1 + 1],
+                                         int(sizes[b]))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pair_ops.collide_enumerate(*args, row_start[i0:i1 + 1],
+                                       int(sizes[b]))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    ops = [e.key for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(ops) == 1 and "collide_enumerate" in ops[0], ops
+    got = (*eng.topk(k=10), eng.squared_row_sums(y, 5),
+           eng.squared_row_sums())
+    monkeypatch.setattr(
+        collide, "collide_enumerate",
+        lambda index, gl_q, q, row_start, n:
+        collide_enumerate_ref(index, gl_q, q, n))
+    want = (*eng.topk(k=10), eng.squared_row_sums(y, 5),
+            eng.squared_row_sums())
+    for a, b in zip(got, want):
         assert torch.equal(a, b)
